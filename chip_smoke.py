@@ -6,33 +6,51 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   -- the card's name and power limit (nvidia-smi); no CUDA: exit 1
-2. build    -- build K1 (nvcc, sm_90a) and the host C++ helpers (g++)
-               in parallel from the sources in the checkout
+2. build    -- build K1-K4 (nvcc, sm_90a, one nvcc per source) and the
+               host C++ helpers (g++) in parallel from the sources in the
+               checkout, with each kernel's ptxas report
 3. k1       -- K1 against its plain PyTorch version on the card, exact
                equality, at D in {7, 39, 127, 1023} x query buckets
                {64, 256, 1024} with BLOSUM62 ranks and padding rows, and at
                the bench shape (B 24576, qlen 256, window 290, band 34);
                kernel and plain ms (CUDA events, median), GCUPS, bound
-4. golden   -- the port's CLI, mkindexp + searchp on the blastp fixtures,
-               byte-equal to tests/golden/blastp_m8.m8 and blastp_m9.m9
-5. card_cpu -- a 2e5-residue database and 256 queries searched with
+4. k2       -- K2 (direction codes) against its plain version at the k1
+               cases: scores, end cells, H-source bits of every in-band
+               cell, extend bits wherever their gap value is positive, and
+               the walked traces
+5. k3       -- K3 (the sublane layout) against K1's plain version at the
+               k1 cases and the bench shape
+6. k4       -- K4 (rectangle) against its plain version at M in {128, 512,
+               2048} with windows up to 2 M, through the op's host entry
+               point (its launches counted)
+7. golden   -- the port's CLI, mkindexp + searchp on the blastp fixtures,
+               byte-equal to tests/golden/blastp_m8.m8 and blastp_m9.m9;
+               again with LAMBDA_SW_TRACE=device (K2) and with the sublane
+               layout (K3)
+8. card_cpu -- a 2e5-residue database and 256 queries searched with
                --device cuda and --device cpu: byte-equal m8
-6. scale    -- the main path: a 1e8-residue synthetic protein database
+9. scale    -- the main path: a 1e8-residue synthetic protein database
                (250,000 x 400 aa), index resident on the card, 1,024
                queries (70 % homolog fragments, 30 % random) through
                mkindexp / searchp with default options; K1 launch count,
                q/s, per-phase seconds, homolog hit share; K1 held against
                the plain version on the first pass-1 launches' inputs;
-               one more pass of the same batches under torch.profiler
-               for the device's busy time and kernel launches
+               the same queries again on the same resident index with
+               LAMBDA_SW_TRACE=device (K2) and with the sublane layout
+               (K3), each m8 byte-equal to the default run's and each
+               kernel held against its plain version on its first three
+               launches' inputs; one more pass of the default batches
+               under torch.profiler for the device's busy time
 
-then the kernels line and, last, {"ok": true, "device": {...}}.
+then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -47,6 +65,14 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT32_LANES_PER_SM = 64            # Hopper white paper: 64 INT32 units/SM
 K1_OPS_PER_CELL = 11               # 5 int32 adds + 6 int32 maxes
+# counted in each kernel's source, per needed cell:
+# K2: K1's work + the code and the end-cell key (7 adds, 5 maxes,
+#     10 compares); K3 and K4: 9 in the first sweep of a run + 5 in the
+#     second (the scan's per-thread steps not counted)
+K2_OPS_PER_CELL = 22
+K3_OPS_PER_CELL = 14
+K4_OPS_PER_CELL = 14
+KERNELS = ("sw_band", "sw_band_dirs", "sw_band_sub", "sw_rect")
 AA = "ARNDCQEGHILKMFPSTWYV"
 GYRA = (
     "MSDLAREITPVNIEEELKSSYLDYAMSVIVGRALPDVRDGLKPVHRRVLYAMNVLGNDWNKAYKKSARVVG"
@@ -96,14 +122,18 @@ def phase_build() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        k1 = ex.submit(timed, lambda: _build.load("sw_band"))
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+        jobs = {name: ex.submit(timed, lambda n=name: _build.load(n))
+                for name in KERNELS}
         host = ex.submit(timed, native.get_lib)
-        k1_s, host_s = k1.result(), host.result()
-    ptxas = [ln.strip() for ln in _build.build_logs.get("sw_band", "")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit(phase="build", k1_nvcc_s=round(k1_s, 2), host_gxx_s=round(host_s, 2),
-         ptxas=ptxas)
+        nvcc_s = {name: round(job.result(), 2) for name, job in jobs.items()}
+        host_s = host.result()
+    ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "")
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in KERNELS}
+    emit(phase="build", k1_nvcc_s=nvcc_s["sw_band"], nvcc_s=nvcc_s,
+         host_gxx_s=round(host_s, 2), ptxas=ptxas["sw_band"],
+         ptxas_by_kernel=ptxas)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -122,6 +152,19 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def timed(fn):
+    """(result, CUDA-event ms) of one call of ``fn``: the plain versions
+    are timed on their comparison call, not run again."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def k1_work(q, d_rows, pad: int, C: int):
     """(needed in-band cells, rectangle cells, bytes moved) of one K1
     call: a row of query length L and band d needs L * (d + 1) cells."""
@@ -135,33 +178,138 @@ def k1_work(q, d_rows, pad: int, C: int):
     return cells, rect, nbytes
 
 
+def bound(ops: int, nbytes: int, dev_info) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the int32 rate and the bytes over the memory rate."""
+    t_ops = ops / dev_info["int32_rate"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def k1_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=5,
-               plain_reps=1) -> dict:
+               plain_reps=1, kernel="K1") -> dict:
     """Kernel vs plain version on the same card tensors: exact equality,
-    times, GCUPS and the bound."""
+    times, GCUPS and the bound.  ``kernel`` K1, or K3 (the sublane
+    layout's kernel, which computes the same function).  ``plain_reps``
+    0 times the plain version on its comparison call alone."""
     from lambda_tpu_torch.ops import sw_band
 
-    saved = sw_band.launches
-    out_k = sw_band.sw_band_score_device(q, s, d_rows, e8, D, gf, ge)
-    out_p = sw_band.sw_band_score_torch(q, s, d_rows, e8, D, gf, ge)
+    if kernel == "K1":
+        def launch():
+            return sw_band.sw_band_score_device(q, s, d_rows, e8, D, gf, ge)
+        counter, per_cell = "launches", K1_OPS_PER_CELL
+    else:
+        def launch():
+            return sw_band._sw_band_score_sub_cuda(q, s, d_rows, e8, D, gf,
+                                                   ge)
+        counter, per_cell = "launches_sub", K3_OPS_PER_CELL
+    def plain():
+        return sw_band.sw_band_score_torch(q, s, d_rows, e8, D, gf, ge)
+
+    saved = getattr(sw_band, counter)
+    out_k = launch()
+    out_p, p_ms = timed(plain)
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
-    k_ms = time_ms(lambda: sw_band.sw_band_score_device(
-        q, s, d_rows, e8, D, gf, ge), reps)
-    p_ms = time_ms(lambda: sw_band.sw_band_score_torch(
-        q, s, d_rows, e8, D, gf, ge), plain_reps)
-    sw_band.launches = saved           # comparison launches do not count
+    k_ms = time_ms(launch, reps)
+    if plain_reps:                     # K1's phase: median of more runs
+        p_ms = time_ms(plain, plain_reps)
+    setattr(sw_band, counter, saved)   # comparison launches do not count
     cells, rect, nbytes = k1_work(q, d_rows, e8.shape[0] - 1, e8.shape[0])
-    t_ops = K1_OPS_PER_CELL * cells / dev_info["int32_rate"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(B=int(q.shape[0]), N=int(q.shape[1]), D=D,
                 max_abs_err=err, exact_equal=err == 0,
                 max_score=int(out_k.max()) if len(out_k) else 0,
                 ms=k_ms, plain_ms=p_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                **bound(per_cell * cells, nbytes, dev_info),
                 inband_cells=cells,
                 rect_gcups=rect / (k_ms * 1e-3) / 1e9,
                 inband_gcups=cells / (k_ms * 1e-3) / 1e9)
+
+
+def k2_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=3,
+               walk_rows=256) -> dict:
+    """K2 vs its plain version on the same card tensors.  Equal means:
+    the same per-row scores and end cells, the same H-source bits on
+    every in-band cell, the same extend bits wherever the gap value they
+    describe is positive (E for bit 4, F for bit 8), and the same walked
+    traces (the first ``walk_rows`` rows: the walk is host Python)."""
+    from lambda_tpu_torch.ops import sw_band
+
+    saved = sw_band.launches_dirs
+    dk, bk, jk, wk = sw_band.sw_band_align_device(q, s, d_rows, e8, D, gf,
+                                                  ge)
+    (dp, bp, jp, wp), p_ms = timed(lambda: sw_band.sw_band_align_torch(
+        q, s, d_rows, e8, D, gf, ge))
+    # both write 0 off band, so equal tensors mean every in-band bit is
+    # equal; only otherwise is the weaker rule evaluated
+    all_bits = torch.equal(dk, dp)
+    h_eq = e_eq = f_eq = all_bits
+    if not all_bits:
+        E, F = sw_band.sw_band_align_torch(q, s, d_rows, e8, D, gf, ge,
+                                           gaps=True)[4:]
+        w = torch.arange(D + 1, device=q.device)
+        d64 = d_rows.to(torch.int64)
+        in_band = ((w[None, :, None] >= (D - d64)[None, None, :])
+                   & (d64 >= 0)[None, None, :])
+        h_eq = bool((((dk ^ dp) & 3) == 0)[in_band.expand_as(dk)].all())
+        e_eq = bool((((dk ^ dp) & 4) == 0)[in_band & (E > 0)].all())
+        f_eq = bool((((dk ^ dp) & 8) == 0)[in_band & (F > 0)].all())
+        del E, F
+    err = int((bk.to(torch.int64) - bp.to(torch.int64)).abs().max())
+    ends_eq = torch.equal(jk, jp) and torch.equal(wk, wp)
+    n = min(walk_rows, int(q.shape[0]))
+    wk_sc, wk_tr = sw_band.walk_rows(dk[:, :, :n], bk[:n], jk[:n], wk[:n], D)
+    wp_sc, wp_tr = sw_band.walk_rows(dp[:, :, :n], bp[:n], jp[:n], wp[:n], D)
+    traces_eq = bool((wk_sc == wp_sc).all()) and wk_tr == wp_tr
+    del dp
+    k_ms = time_ms(lambda: sw_band.sw_band_align_device(
+        q, s, d_rows, e8, D, gf, ge), reps)
+    sw_band.launches_dirs = saved      # comparison launches do not count
+    cells, _, in_bytes = k1_work(q, d_rows, e8.shape[0] - 1, e8.shape[0])
+    B, N = q.shape
+    nbytes = in_bytes + B * N * (D + 1) + 8 * B   # dirs once, end cells
+    exact = err == 0 and ends_eq and h_eq and e_eq and f_eq and traces_eq
+    return dict(B=int(B), N=int(N), D=D, max_abs_err=err,
+                exact_equal=exact, end_cells_equal=ends_eq,
+                h_source_equal=h_eq, e_ext_equal=e_eq, f_ext_equal=f_eq,
+                all_inband_bits_equal=all_bits, rows_walked=n,
+                traces_equal=traces_eq,
+                traces_with_gaps=sum(1 for t in wk_tr
+                                     if t is not None and len(t[2]) > 1),
+                max_score=int(bk.max()) if len(bk) else 0,
+                ms=k_ms, plain_ms=p_ms,
+                **bound(K2_OPS_PER_CELL * cells, nbytes, dev_info),
+                inband_cells=cells,
+                inband_gcups=cells / (k_ms * 1e-3) / 1e9)
+
+
+def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
+    """K4 vs its plain version on the same card tensors: exact equality
+    (and of ``host_out``, the host entry point's result, when given),
+    times and the bound (needed cells: real query x real window)."""
+    from lambda_tpu_torch.ops import sw_rect
+
+    saved = sw_rect.launches
+    out_k = sw_rect.sw_score_device(q, s, e8, gf, ge)
+    out_p, p_ms = timed(lambda: sw_rect.sw_score_torch(q, s, e8, gf, ge))
+    err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
+    if host_out is not None:
+        err = max(err, int(np.abs(out_p.cpu().numpy().astype(np.int64)
+                                  - host_out).max()))
+    k_ms = time_ms(lambda: sw_rect.sw_score_device(q, s, e8, gf, ge), reps)
+    sw_rect.launches = saved           # comparison launches do not count
+    pad = e8.shape[0] - 1
+    qlen = (q != pad).sum(dim=1).to(torch.int64)
+    slen = (s != pad).sum(dim=1).to(torch.int64)
+    cells = int((qlen * slen).sum())
+    B, M = q.shape
+    N = s.shape[1]
+    nbytes = B * M + B * N + 4 * B + e8.numel()
+    return dict(B=int(B), M=int(M), N=int(N), max_abs_err=err,
+                exact_equal=err == 0, max_score=int(out_k.max()),
+                ms=k_ms, plain_ms=p_ms,
+                **bound(K4_OPS_PER_CELL * cells, nbytes, dev_info),
+                cells=cells, gcups=cells / (k_ms * 1e-3) / 1e9)
 
 
 def blosum_e8():
@@ -234,6 +382,116 @@ def phase_k1(dev_info) -> dict:
     return dict(bench=bench, worst=max(worst, bench["max_abs_err"]))
 
 
+def band_cases(seed: int, C: int):
+    """The k1 phase's band buckets x query buckets, as card tensors."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    for D in (7, 39, 127, 1023):
+        for qbk in (64, 256, 1024):
+            N = qbk + D
+            B = int(min(4096, max(64, (1 << 27) // (N * (D + 1)))))
+            yield D, qbk, [torch.as_tensor(x, device=dev)
+                           for x in k1_inputs(rng, B, qbk, D, C)]
+
+
+def phase_k2(dev_info) -> dict:
+    e8_np, gf, ge = blosum_e8()
+    e8 = torch.as_tensor(e8_np, device="cuda")
+    worst, rows = 0, []
+    for D, qbk, (q, s, d) in band_cases(17, e8_np.shape[0]):
+        r = k2_compare(q, s, d, e8, D, gf, ge, dev_info)
+        worst = max(worst, r["max_abs_err"])
+        rows.append(r)
+        emit(phase="k2", case=f"D{D}_q{qbk}", **r)
+        if not r["exact_equal"]:
+            raise SystemExit(f"K2 disagrees with its plain version at D {D}, "
+                             f"qlen bucket {qbk}")
+    return dict(worst=worst)
+
+
+def phase_k3(dev_info) -> dict:
+    e8_np, gf, ge = blosum_e8()
+    dev = torch.device("cuda")
+    e8 = torch.as_tensor(e8_np, device=dev)
+    worst = 0
+    for D, qbk, (q, s, d) in band_cases(19, e8_np.shape[0]):
+        r = k1_compare(q, s, d, e8, D, gf, ge, dev_info, plain_reps=0,
+                       kernel="K3")
+        worst = max(worst, r["max_abs_err"])
+        emit(phase="k3", case=f"D{D}_q{qbk}", **r)
+        if not r["exact_equal"]:
+            raise SystemExit(f"K3 disagrees with K1's plain version at D {D}, "
+                             f"qlen bucket {qbk}")
+    rng = np.random.default_rng(23)
+    B, M, D_true, D, N = 24576, 256, 34, 39, 296
+    C = e8_np.shape[0]
+    q = rng.integers(0, 20, (B, N)).astype(np.int8)
+    q[:, M:] = C - 1
+    s = rng.integers(0, 20, (B, N)).astype(np.int8)
+    d = np.full(B, D_true, np.int32)
+    bench = k1_compare(*(torch.as_tensor(x, device=dev) for x in (q, s, d)),
+                       e8, D, gf, ge, dev_info, reps=10, plain_reps=0,
+                       kernel="K3")
+    bench["rect_gcups"] = B * M * (M + D_true) / (bench["ms"] * 1e-3) / 1e9
+    emit(phase="k3", case="bench_shape", **bench)
+    if not bench["exact_equal"]:
+        raise SystemExit("K3 disagrees with K1's plain version at the bench "
+                         "shape")
+    return dict(bench=bench, worst=max(worst, bench["max_abs_err"]))
+
+
+def k4_inputs(rng, B: int, M: int, C: int):
+    """Rectangle inputs: query lengths in (M/2, M], windows of 2 M columns
+    holding (M, 2M] real ranks, half of them with a mutated copy of the
+    query; PAD (C - 1) trailing."""
+    pad = C - 1
+    q = np.full((B, M), pad, np.int8)
+    s = np.full((B, 2 * M), pad, np.int8)
+    for b in range(B):
+        L = int(rng.integers(M // 2 + 1, M + 1))
+        S = int(rng.integers(M + 1, 2 * M + 1))
+        q[b, :L] = rng.integers(0, 20, L)
+        s[b, :S] = rng.integers(0, 20, S)
+        if b % 2 == 0:
+            off = int(rng.integers(0, S - L + 1))
+            s[b, off:off + L] = q[b, :L]
+            mut = rng.integers(0, L, L // 8)
+            s[b, off + mut] = rng.integers(0, 20, len(mut))
+    return q, s
+
+
+def phase_k4(dev_info) -> dict:
+    """K4 through its op entry point (the host API ``sw_score``, launches
+    counted from 0), then each case's kernel against the plain version."""
+    from lambda_tpu_torch.ops import sw_rect
+
+    rng = np.random.default_rng(29)
+    e8_np, gf, ge = blosum_e8()
+    C = e8_np.shape[0]
+    cases = []
+    for M in (128, 512, 2048):
+        B = int(max(64, min(2048, (1 << 28) // (M * 2 * M))))
+        cases.append(k4_inputs(rng, B, M, C))
+    sw_rect.launches = 0                       # the op's path starts
+    host = [sw_rect.sw_score(q, s, e8_np, gf, ge, device="cuda")
+            for q, s in cases]
+    launches = sw_rect.launches                # ... and ends
+    e8 = torch.as_tensor(e8_np, device="cuda")
+    rows = []
+    for (q, s), h in zip(cases, host):
+        qt, st = (torch.as_tensor(x, device="cuda") for x in (q, s))
+        r = k4_compare(qt, st, e8, gf, ge, dev_info, host_out=h)
+        rows.append(r)
+        emit(phase="k4", case=f"M{r['M']}", **r)
+        if not r["exact_equal"]:
+            raise SystemExit(f"K4 disagrees with its plain version at M "
+                             f"{r['M']}")
+    if launches != len(cases):
+        raise SystemExit(f"the op's host entry launched K4 {launches} times "
+                         f"for {len(cases)} calls")
+    return dict(launches=launches, rows=rows)
+
+
 def run_cli(*args) -> None:
     from lambda_tpu_torch import cli
 
@@ -248,10 +506,50 @@ def write_fasta(path, recs) -> None:
     fasta.write_fasta(path, [fasta.SeqRecord(i, s.encode()) for i, s in recs])
 
 
-def phase_golden(tmp: Path) -> int:
-    """The blastp golden fixtures (the recipe of tests/test_golden.py)."""
+# pass-2 / pass-1 switches of searchp and the launch counter of the
+# kernel each one routes to
+MODES = {"default": "launches", "device_trace": "launches_dirs",
+         "sublane": "launches_sub"}
+
+
+@contextlib.contextmanager
+def switched(mode: str):
+    """``device_trace``: LAMBDA_SW_TRACE=device (read at call time, pass 2
+    through K2); ``sublane``: the pass-1 layout that ops/sw_band.py latches
+    from LAMBDA_SWB_LAYOUT at import, set on the module (K3)."""
     from lambda_tpu_torch.ops import sw_band
 
+    env, layout = os.environ.get("LAMBDA_SW_TRACE"), sw_band._LAYOUT
+    if mode == "device_trace":
+        os.environ["LAMBDA_SW_TRACE"] = "device"
+    elif mode == "sublane":
+        sw_band._LAYOUT = "sublane"
+    try:
+        yield
+    finally:
+        sw_band._LAYOUT = layout
+        if env is None:
+            os.environ.pop("LAMBDA_SW_TRACE", None)
+        else:
+            os.environ["LAMBDA_SW_TRACE"] = env
+
+
+def band_launches() -> dict:
+    from lambda_tpu_torch.ops import sw_band
+
+    return {c: getattr(sw_band, c) for c in MODES.values()}
+
+
+def reset_band_launches() -> None:
+    from lambda_tpu_torch.ops import sw_band
+
+    for c in MODES.values():
+        setattr(sw_band, c, 0)
+
+
+def phase_golden(tmp: Path) -> dict:
+    """The blastp golden fixtures (the recipe of tests/test_golden.py),
+    once per switch."""
     pdb, pq = tmp / "pdb.fasta", tmp / "pq.fasta"
     write_fasta(pdb, [("GYRA_ECOLI gyrase subunit A", GYRA),
                       ("SECOND_PROT some other protein",
@@ -261,21 +559,32 @@ def phase_golden(tmp: Path) -> int:
                      ("pq2", frag2[:30] + "AG" + frag2[32:])])
     lit = tmp / "pdb.lit"
     run_cli("mkindexp", "-d", pdb, "-i", lit, "-v", "0")
-    sw_band.launches = 0
-    res = {}
-    for suffix in (".m8", ".m9"):
-        out = tmp / f"golden{suffix}"
-        run_cli("searchp", "-q", pq, "-i", lit, "-o", out,
-                "--version-to-outputfile", "0", "-v", "0", "--device", "cuda")
-        got = re.sub(rb"(Database: ).*", rb"\1<path>", out.read_bytes())
-        want = (REPO / "tests" / "golden" / f"blastp_m{suffix[-1]}{suffix}") \
-            .read_bytes()
-        res[suffix] = got == want
-    emit(phase="golden", m8_equal=res[".m8"], m9_equal=res[".m9"],
-         k1_launches=sw_band.launches)
-    if not all(res.values()):
-        raise SystemExit("golden outputs differ")
-    return sw_band.launches
+    counts = {}
+    for mode, counter in MODES.items():
+        reset_band_launches()
+        res = {}
+        with switched(mode):
+            for suffix in (".m8", ".m9"):
+                out = tmp / f"golden_{mode}{suffix}"
+                run_cli("searchp", "-q", pq, "-i", lit, "-o", out,
+                        "--version-to-outputfile", "0", "-v", "0",
+                        "--device", "cuda")
+                got = re.sub(rb"(Database: ).*", rb"\1<path>",
+                             out.read_bytes())
+                want = (REPO / "tests" / "golden"
+                        / f"blastp_m{suffix[-1]}{suffix}").read_bytes()
+                res[suffix] = got == want
+        n = band_launches()
+        counts[mode] = n[counter]
+        emit(phase="golden", mode=mode, m8_equal=res[".m8"],
+             m9_equal=res[".m9"], k1_launches=n["launches"],
+             k2_launches=n["launches_dirs"], k3_launches=n["launches_sub"])
+        if not all(res.values()):
+            raise SystemExit(f"golden outputs differ ({mode})")
+        if n[counter] <= 0:
+            raise SystemExit(f"the golden search ({mode}) launched its "
+                             "kernel no time")
+    return counts
 
 
 def synthetic_db(rng, n_subj: int, length: int):
@@ -369,7 +678,7 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
         index_file=str(lit), output=str(tmp / "big.m8"), verbosity=0)
     try:
         torch.cuda.reset_peak_memory_stats()
-        sw_band.launches = 0                       # the main path starts
+        reset_band_launches()                      # the main path starts
         t0 = time.perf_counter()
         stats = pipeline.run_search(opt, device="cuda")
         torch.cuda.synchronize()
@@ -390,6 +699,9 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     share = found / n_hom
     cmp = [k1_compare(*x[:4], x[4], x[5], x[6], dev_info, reps=3)
            for x in rec["k1_inputs"]]
+    want_m8 = (tmp / "big.m8").read_bytes()
+    reruns = {mode: rerun_search(rec["ctx"], tmp, mode, want_m8, dev_info,
+                                 n_q) for mode in ("device_trace", "sublane")}
     prof = profile_search(rec.pop("ctx"), opt)
     search_s = t1 - rec["ready"]
     emit(phase="scale", db_residues=n_subj * length, subjects=n_subj,
@@ -422,7 +734,79 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     if not all(c["exact_equal"] for c in cmp):
         raise SystemExit("K1 disagrees with its plain version on main-path "
                          "inputs")
-    return dict(launches=launches, cmp=cmp)
+    return dict(launches=launches, cmp=cmp, reruns=reruns)
+
+
+def rerun_search(ctx, tmp: Path, mode: str, want_m8: bytes, dev_info,
+                 n_q: int) -> dict:
+    """The scale phase's queries again through run_search on the SAME
+    resident index (SearchContext is handed the loaded context), with one
+    switch on: its kernel's launches counted from 0, the m8 held
+    byte-equal to the default run's, and the kernel held against its
+    plain version on its first three launches' inputs."""
+    from lambda_tpu_torch import options as opt_mod
+    from lambda_tpu_torch.ops import sw_band
+    from lambda_tpu_torch.search import pipeline
+
+    counter = MODES[mode]
+    wrapper = {"device_trace": "_sw_band_align_cuda",
+               "sublane": "_sw_band_score_sub_cuda"}[mode]
+    launch = getattr(sw_band, wrapper)
+    captured: list = []
+
+    def hook(*a):
+        if len(captured) < 3:
+            captured.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a))
+        return launch(*a)
+
+    out = tmp / f"big_{mode}.m8"
+    opt = opt_mod.make_search_options(
+        opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
+        index_file=str(tmp / "big.lit"), output=str(out), verbosity=0)
+    cls = pipeline.SearchContext
+    pipeline.SearchContext = lambda *a, **kw: ctx      # the resident index
+    setattr(sw_band, wrapper, hook)
+    try:
+        with switched(mode):
+            reset_band_launches()                  # this path starts
+            t0 = time.perf_counter()
+            stats = pipeline.run_search(opt, device="cuda")
+            torch.cuda.synchronize()
+            search_s = time.perf_counter() - t0
+            n = band_launches()                    # ... and ends
+    finally:
+        pipeline.SearchContext = cls
+        setattr(sw_band, wrapper, launch)
+    same = out.read_bytes() == want_m8
+    if mode == "device_trace":
+        cmp = [k2_compare(*x, dev_info) for x in captured]
+    else:
+        cmp = [k1_compare(*x, dev_info, reps=3, plain_reps=0, kernel="K3")
+               for x in captured]
+    emit(phase="scale_rerun", mode=mode, m8_equal_default=same,
+         search_s=round(search_s, 3),
+         queries_per_s=round(n_q / search_s, 2),
+         time_extend_s=round(stats.time_extend, 3),
+         time_extend_trace_s=round(stats.time_extend_trace, 3),
+         phase_s={k: round(getattr(stats, f"time_{k}"), 3) for k in
+                  ("seed", "locate", "merge", "extend", "extend_trace",
+                   "write")},
+         k1_launches=n["launches"], k2_launches=n["launches_dirs"],
+         k3_launches=n["launches_sub"],
+         main_path_compare=[{k: c[k] for k in
+                             ("B", "N", "D", "exact_equal", "ms",
+                              "plain_ms", "bound_ms", "bound_by")}
+                            for c in cmp])
+    if not same:
+        raise SystemExit(f"the {mode} run's m8 differs from the default "
+                         "run's")
+    if n[counter] <= 0 or not cmp:
+        raise SystemExit(f"the {mode} run launched its kernel no time")
+    if not all(c["exact_equal"] for c in cmp):
+        raise SystemExit(f"the {mode} run's kernel disagrees with its plain "
+                         "version on main-path inputs")
+    return dict(launches=n[counter], cmp=cmp)
 
 
 def profile_search(ctx, opt) -> dict:
@@ -458,36 +842,65 @@ def profile_search(ctx, opt) -> dict:
                               e.count] for e in top])
 
 
-def main() -> int:
-    dev_info = phase_device()
-    phase_build()
-    k1 = phase_k1(dev_info)
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
-        tmp = Path(d)
-        phase_golden(tmp)
-        phase_card_cpu(tmp)
-        scale = phase_scale(tmp, dev_info)
-    cmp = scale["cmp"]
-    b = k1["bench"]
-    print(smi("name,power.limit"), flush=True)
-    emit(kernels=[dict(
-        name="K1 sw_band_score", route="cuda",
-        source="lambda_tpu_torch/csrc/sw_band.cu",
-        replaces="lambda_tpu/ops/sw_band.py:572 _make_band_kernel_lane",
-        launches=scale["launches"],
-        max_abs_err=max([k1["worst"]] + [c["max_abs_err"] for c in cmp]),
+def kernel_entry(name, source, replaces, launches, worst, cmp,
+                 **extra) -> dict:
+    """One entry of the kernels line: main-path launches, and the sums
+    over the timed main-path launches (or op calls) of kernel, plain and
+    bound times."""
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches,
+        max_abs_err=max([worst] + [c["max_abs_err"] for c in cmp]),
         exact_equal=all(c["exact_equal"] for c in cmp),
         ms=sum(c["ms"] for c in cmp),
         plain_ms=sum(c["plain_ms"] for c in cmp),
         bound_ms=sum(c["bound_ms"] for c in cmp),
         bound_by=("operations" if all(c["bound_by"] == "operations"
                                       for c in cmp) else "bytes"),
-        library_ms=None,
-        main_path_launches_timed=len(cmp),
-        bench_shape={k: b[k] for k in ("B", "N", "D", "ms", "plain_ms",
-                                       "bound_ms", "rect_gcups",
-                                       "inband_gcups")})])
+        library_ms=None, main_path_launches_timed=len(cmp), **extra)
+
+
+def main() -> int:
+    dev_info = phase_device()
+    phase_build()
+    k1 = phase_k1(dev_info)
+    k2 = phase_k2(dev_info)
+    k3 = phase_k3(dev_info)
+    k4 = phase_k4(dev_info)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        tmp = Path(d)
+        phase_golden(tmp)
+        phase_card_cpu(tmp)
+        scale = phase_scale(tmp, dev_info)
+    reruns = scale["reruns"]
+
+    def bench(r):
+        return {k: r[k] for k in ("B", "N", "D", "ms", "plain_ms",
+                                  "bound_ms", "rect_gcups", "inband_gcups")}
+
+    print(smi("name,power.limit"), flush=True)
+    emit(kernels=[
+        kernel_entry(
+            "K1 sw_band_score", "lambda_tpu_torch/csrc/sw_band.cu",
+            "lambda_tpu/ops/sw_band.py:572 _make_band_kernel_lane",
+            scale["launches"], k1["worst"], scale["cmp"],
+            bench_shape=bench(k1["bench"])),
+        kernel_entry(
+            "K2 sw_band_dirs", "lambda_tpu_torch/csrc/sw_band_dirs.cu",
+            "lambda_tpu/ops/sw_band.py:277 _make_band_dirs_kernel",
+            reruns["device_trace"]["launches"], k2["worst"],
+            reruns["device_trace"]["cmp"]),
+        kernel_entry(
+            "K3 sw_band_sub", "lambda_tpu_torch/csrc/sw_band_sub.cu",
+            "lambda_tpu/ops/sw_band.py:728 _make_band_kernel",
+            reruns["sublane"]["launches"], k3["worst"],
+            reruns["sublane"]["cmp"], bench_shape=bench(k3["bench"])),
+        kernel_entry(
+            "K4 sw_rect", "lambda_tpu_torch/csrc/sw_rect.cu",
+            "lambda_tpu/ops/sw_pallas.py:118 _make_kernel",
+            k4["launches"], 0, k4["rows"]),
+    ])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/lambda_tpu_torch/`` at the repository root, keyed by a hash of the
-source, and loaded with ``ctypes``.  Nothing is built at import time:
-the first launch builds.
+source and the shared headers, and loaded with ``ctypes``.  Nothing is
+built at import time: the first launch builds.  Separate sources build
+in parallel (``load`` from several threads).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = threading.Lock()          # guards _name_locks
+_name_locks: dict = {}            # one build at a time per source
 # compiler output of each build (ptxas register / spill report), by name
 build_logs: dict = {}
 
@@ -43,10 +45,15 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = _CSRC / f"{name}.cu"
-        tag = hashlib.sha256(src.read_bytes()
+        # the key covers the shared headers too (csrc/*.cuh)
+        text = src.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+        tag = hashlib.sha256(text
                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}-{tag}.so"

@@ -1,8 +1,18 @@
-"""K1: the banded Smith-Waterman score pass (pass 1 of the extension).
+"""The banded Smith-Waterman kernels of the extension: K1, K2 and K3.
 
-Port of the score side of ``lambda_tpu/ops/sw_band.py``.  The TPU kernel
-(``_make_band_kernel_lane``) becomes the CUDA kernel in
-``csrc/sw_band.cu``; see its header for the design and what bounds it.
+Port of ``lambda_tpu/ops/sw_band.py``.  Its three TPU kernels become CUDA
+kernels; each source's header gives the design and what bounds it:
+
+* K1 (``_make_band_kernel_lane``, pass 1, the default 'lane' layout) ->
+  ``csrc/sw_band.cu``, plain version :func:`sw_band_score_torch`.
+* K3 (``_make_band_kernel``, pass 1 in the 'sublane' layout, chosen by
+  ``LAMBDA_SWB_LAYOUT=sublane``, latched when the module is imported as
+  in JAX) -> ``csrc/sw_band_sub.cu``.  K3 computes K1's function (band
+  offsets spread over the threads instead of one thread per alignment),
+  so its plain version is :func:`sw_band_score_torch` too.
+* K2 (``_make_band_dirs_kernel``, pass 2 under ``LAMBDA_SW_TRACE=device``)
+  -> ``csrc/sw_band_dirs.cu``, plain version :func:`sw_band_align_torch`;
+  the host walk :func:`traceback_banded` reads its direction codes.
 
 Window convention (unchanged): the caller builds a *virtual* subject
 window such that the band is exactly ``d = j - i in [0, d_row]`` (query
@@ -13,18 +23,19 @@ how alignments are grouped into launches, and bands are enforced per CELL
 (off-band E -> -inf, H -> 0, F sources -> -inf): masking only the
 substitution scores would let pure gap corridors cross the band.
 
-``sw_band_score_device`` launches the kernel for CUDA tensors and runs the
-plain PyTorch version ``sw_band_score_torch`` for CPU tensors; there is
-no fallback from one to the other.  The TPU kernel's tile plan
-(``_plan``/``_lane_geometry``: batch tiles of BT*P rows, windows padded
-to the column chunk) has no counterpart here: the CUDA kernel takes any
-batch and window size, and PAD columns or padding rows cannot change a
-score.
+``sw_band_score_device`` and ``sw_band_align_device`` launch a kernel for
+CUDA tensors and run the plain PyTorch version for CPU tensors; there is
+no fallback from one to the other.  The TPU kernels' tile plans
+(``_plan``/``_lane_geometry``/``trace_tile``: batch tiles of BT*P rows,
+windows padded to the column chunk) and ``_pad_host_inputs`` have no
+counterpart here: the CUDA kernels take any batch and window size, and
+PAD columns or padding rows cannot change a score or a trace.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -34,10 +45,15 @@ PAD_SCORE8 = -128
 PAD_SCORE = -(2 ** 20)
 # shared memory a block may use on Hopper (232,448 bytes)
 _SMEM_MAX = 227 * 1024
+# pass-1 layout, latched at import like lambda_tpu/ops/sw_band.py:66:
+# 'lane' launches K1, 'sublane' launches K3
+_LAYOUT = os.environ.get("LAMBDA_SWB_LAYOUT", "lane")
 
-# kernel launches since the last reset (chip_smoke reads it around the
-# main path)
+# kernel launches since the last reset, one counter per kernel
+# (chip_smoke reads them around the main path): K1, K2 and K3
 launches = 0
+launches_dirs = 0
+launches_sub = 0
 
 
 def extend_matrix(subst: np.ndarray) -> np.ndarray:
@@ -63,12 +79,15 @@ def ext8_from_ext32(ext32: np.ndarray) -> np.ndarray:
     return extend_matrix8(np.asarray(ext32)[:a, :a])
 
 
-def sw_band_score_torch(q: torch.Tensor, s: torch.Tensor,
-                        d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
-                        gap_first: int, gap_extend: int) -> torch.Tensor:
-    """Plain PyTorch version of K1: a column loop over (B, D+1) int32
-    band tensors, the F recurrence as a max-plus doubling scan along the
-    band.  Same arguments and result as :func:`sw_band_score_device`."""
+def _band_sweep(q: torch.Tensor, s: torch.Tensor, d_rows: torch.Tensor,
+                subst8: torch.Tensor, D: int, gap_first: int,
+                gap_extend: int):
+    """The plain banded DP shared by K1's and K2's plain versions: a
+    column loop over (B, D+1) int32 band tensors, the F recurrence as a
+    max-plus doubling scan along the band.  Yields, per window column,
+    (valid, ea, eb, E, diag, F, H) with ea = E[w+1] + ge and
+    eb = H[w+1] + gf of the previous column, E and H masked to the band
+    (E = -inf, H = 0 off band) and F unmasked."""
     B, N = q.shape
     dev = q.device
     W = D + 1
@@ -89,17 +108,17 @@ def sw_band_score_torch(q: torch.Tensor, s: torch.Tensor,
     s64 = s.to(torch.int64)
     H = torch.zeros((B, W), dtype=torch.int32, device=dev)
     E = torch.full((B, W), NEG32, dtype=torch.int32, device=dev)
-    best = torch.zeros((B, W), dtype=torch.int32, device=dev)
     # lane D pulls E/H from off band (E = -inf, H = 0)
     h_off = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     e_off = torch.full((B, 1), NEG32, dtype=torch.int32, device=dev)
     neg_col = torch.full((B, 1), NEG32, dtype=torch.int32, device=dev)
     for j in range(N):
         sub = sub_tbl[qpad[:, j:j + W], s64[:, j:j + 1]]
-        h_up = torch.cat([H[:, 1:], h_off], dim=1)
-        e_up = torch.cat([E[:, 1:], e_off], dim=1)
-        E = torch.where(valid, torch.maximum(e_up + ge, h_up + gf), neg)
-        htmp = torch.maximum(torch.maximum(H + sub, E), zero)
+        ea = torch.cat([E[:, 1:], e_off], dim=1) + ge
+        eb = torch.cat([H[:, 1:], h_off], dim=1) + gf
+        E = torch.where(valid, torch.maximum(ea, eb), neg)
+        diag = H + sub
+        htmp = torch.maximum(torch.maximum(diag, E), zero)
         fsrc = torch.where(valid, htmp, neg)
         # F[w] = max_{k < w} fsrc[k] + gf + (w - 1 - k) * ge
         F = torch.cat([neg_col, fsrc[:, :-1] + gf], dim=1)
@@ -109,12 +128,33 @@ def sw_band_score_torch(q: torch.Tensor, s: torch.Tensor,
                 [F[:, :st], F[:, :-st] + st * ge], dim=1))
             st *= 2
         H = torch.where(valid, torch.maximum(htmp, F), zero)
-        best = torch.maximum(best, H)
-    return best.max(dim=1).values
+        yield valid, ea, eb, E, diag, F, H
+
+
+def sw_band_score_torch(q: torch.Tensor, s: torch.Tensor,
+                        d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
+                        gap_first: int, gap_extend: int) -> torch.Tensor:
+    """Plain PyTorch version of K1 and of K3 (:func:`_band_sweep`).  Same
+    arguments and result as :func:`sw_band_score_device`."""
+    best = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    for *_, H in _band_sweep(q, s, d_rows, subst8, D, gap_first,
+                             gap_extend):
+        best = torch.maximum(best, H.max(dim=1).values)
+    return best
+
+
+def _check_inputs(kernel, q, s, d_rows, subst8):
+    for name, t, dt in (("q", q, torch.int8), ("s", s, torch.int8),
+                        ("d_rows", d_rows, torch.int32),
+                        ("subst8", subst8, torch.int8)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous CUDA "
+                             f"{dt} tensor (got {t.dtype} on {t.device})")
 
 
 def _launch_config(B: int, D: int, C: int):
-    """(threads per block, dynamic shared bytes, needs global scratch)."""
+    """K1 and K2: (threads per block, dynamic shared bytes, needs global
+    scratch)."""
     Ws = D + 1
     for threads in (128, 64, 32):
         smem = 4 * (C * C + 2 * Ws * threads)
@@ -129,12 +169,7 @@ def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
     global launches
     B, N = q.shape
     C = subst8.shape[0]
-    for name, t, dt in (("q", q, torch.int8), ("s", s, torch.int8),
-                        ("d_rows", d_rows, torch.int32),
-                        ("subst8", subst8, torch.int8)):
-        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"K1: {name} must be a contiguous CUDA {dt} "
-                             f"tensor (got {t.dtype} on {t.device})")
+    _check_inputs("K1", q, s, d_rows, subst8)
     lib = _build.load("sw_band")
     fn = lib.sw_band_score_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
@@ -166,21 +201,83 @@ def sw_band_score_device(q: torch.Tensor, s: torch.Tensor,
     windows, d_rows: (B,) int32 per-row band sizes <= D (-1 marks a
     batch-padding row that scores 0), subst8: (C, C) int8 with the PAD
     row/column last.  Returns (B,) int32.  CUDA tensors (int8 ranks)
-    launch the kernel; CPU tensors run :func:`sw_band_score_torch`."""
+    launch K1, or K3 when the layout is 'sublane'; CPU tensors run
+    :func:`sw_band_score_torch`."""
+    if x_drop > 0 and _LAYOUT != "lane":
+        # as lambda_tpu/ops/sw_band.py:868-874: the sublane kernel has no
+        # X-drop, and exact scores where X-drop ones are asked for would
+        # make the output depend on the layout
+        raise NotImplementedError(
+            "LAMBDA_SW_XDROP requires the default lane layout "
+            "(LAMBDA_SWB_LAYOUT=sublane does not implement X-drop)")
     if x_drop > 0:
         raise NotImplementedError("X-drop in the pass-1 score kernel is "
                                   "not yet ported")
+    _check_shapes("K1", q, s, d_rows, subst8)
+    if q.is_cuda:
+        launch = (_sw_band_score_sub_cuda if _LAYOUT == "sublane"
+                  else _sw_band_score_cuda)
+        return launch(q, s, d_rows, subst8, D, gap_first, gap_extend)
+    return sw_band_score_torch(q, s, d_rows, subst8, D, gap_first,
+                               gap_extend)
+
+
+def _check_shapes(kernel, q, s, d_rows, subst8):
     B, N = q.shape
     C = subst8.shape[0]
     if s.shape != (B, N) or d_rows.shape != (B,) or subst8.shape != (C, C):
-        raise ValueError(f"K1: shapes q {tuple(q.shape)} s {tuple(s.shape)} "
-                         f"d_rows {tuple(d_rows.shape)} subst8 "
-                         f"{tuple(subst8.shape)} do not agree")
-    if q.is_cuda:
-        return _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first,
-                                   gap_extend)
-    return sw_band_score_torch(q, s, d_rows, subst8, D, gap_first,
-                               gap_extend)
+        raise ValueError(f"{kernel}: shapes q {tuple(q.shape)} s "
+                         f"{tuple(s.shape)} d_rows {tuple(d_rows.shape)} "
+                         f"subst8 {tuple(subst8.shape)} do not agree")
+
+
+def team_config(W: int, C: int):
+    """K3 and K4: one team of T threads (a power of two, at most 256) per
+    alignment, each thread a run of R cells of a W-cell column, 256 / T
+    alignments per block.  Returns (T, R, threads, shared bytes, needs
+    global scratch)."""
+    T = 1
+    while T < min(W, 256):
+        T *= 2
+    R = -(-W // T)
+    threads = max(T, 256)
+    fixed = 4 * (C * C + threads + threads // 32 + 1)
+    smem = fixed + 8 * T * R * (threads // T)
+    if smem <= _SMEM_MAX:
+        return T, R, threads, smem, False
+    return T, R, threads, fixed, True
+
+
+def _sw_band_score_sub_cuda(q, s, d_rows, subst8, D, gap_first,
+                            gap_extend):
+    from . import _build
+
+    global launches_sub
+    B, N = q.shape
+    C = subst8.shape[0]
+    _check_inputs("K3", q, s, d_rows, subst8)
+    lib = _build.load("sw_band_sub")
+    fn = lib.sw_band_sub_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(B, dtype=torch.int32, device=q.device)
+    T, R, threads, smem, use_scratch = team_config(D + 1, C)
+    per_block = threads // T
+    rows = -(-B // per_block) * per_block
+    scratch = (torch.empty(2 * T * R * rows, dtype=torch.int32,
+                           device=q.device) if use_scratch else None)
+    err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
+             subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
+             T, R, threads,
+             scratch.data_ptr() if scratch is not None else None,
+             smem, out.data_ptr(),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {err}")
+    launches_sub += 1
+    return out
 
 
 def sw_band_score(q: np.ndarray, s: np.ndarray, d_rows: np.ndarray,
@@ -207,3 +304,200 @@ def sw_band_score(q: np.ndarray, s: np.ndarray, d_rows: np.ndarray,
         torch.as_tensor(np.asarray(subst_ext8, dtype=np.int8), device=dev),
         D, gap_first, gap_extend)
     return out.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# K2: the direction-emitting pass (pass 2 under LAMBDA_SW_TRACE=device)
+# ---------------------------------------------------------------------------
+
+
+def sw_band_align_torch(q: torch.Tensor, s: torch.Tensor,
+                        d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
+                        gap_first: int, gap_extend: int, gaps: bool = False):
+    """Plain PyTorch version of K2 (:func:`_band_sweep` plus the codes).
+    Same arguments and results as :func:`sw_band_align_device`; with
+    ``gaps`` it also returns the E and F value of every cell, (N, D+1, B)
+    int32 each, for the tests that hold an extend bit only where the gap
+    value it describes is positive."""
+    B, N = q.shape
+    dev = q.device
+    W = D + 1
+    gf, ge = int(gap_first), int(gap_extend)
+    dirs = torch.zeros((N, W, B), dtype=torch.uint8, device=dev)
+    e_all = f_all = None
+    if gaps:
+        e_all = torch.empty((N, W, B), dtype=torch.int32, device=dev)
+        f_all = torch.empty((N, W, B), dtype=torch.int32, device=dev)
+    w = torch.arange(W, device=dev)
+    wmin = (D - d_rows.to(torch.int64))[:, None]
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    key = torch.full((B,), 2 ** 62, dtype=torch.int64, device=dev)
+    end_j = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    end_w = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    neg_col = torch.full((B, 1), NEG32, dtype=torch.int32, device=dev)
+    zero_col = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    for j, (valid, ea, eb, E, diag, F, H) in enumerate(_band_sweep(
+            q, s, d_rows, subst8, D, gf, ge)):
+        pos = H > 0
+        code = torch.where(pos & (H == F), 3, 0)
+        code = torch.where(pos & (H == E), 2, code)
+        code = torch.where(pos & (H == diag), 1, code)
+        code = code | torch.where(ea >= eb, 4, 0)
+        # F extends: F[w-1] + ge >= H[w-1] + gf (final masked H below)
+        f_ext = (torch.cat([neg_col, F[:, :-1]], dim=1) + ge
+                 >= torch.cat([zero_col, H[:, :-1]], dim=1) + gf)
+        code = code | torch.where(f_ext & (w[None, :] > wmin), 8, 0)
+        dirs[j] = torch.where(valid, code, 0).to(torch.uint8).T
+        if gaps:
+            e_all[j] = E.T
+            f_all[j] = F.T
+        # end cell: max H, then smallest i + j (key 2j + w), then
+        # smallest i (a later column); within a column the first w at
+        # the column's maximum has the smallest key
+        col_max = H.max(dim=1).values
+        col_w = torch.where(H == col_max[:, None], w[None, :], W) \
+            .min(dim=1).values
+        col_key = 2 * j + col_w
+        upd = (col_max > 0) & ((col_max > best)
+                               | ((col_max == best) & (col_key <= key)))
+        best = torch.where(upd, col_max, best)
+        key = torch.where(upd, col_key, key)
+        end_j = torch.where(upd, j, end_j)
+        end_w = torch.where(upd, col_w.to(torch.int32), end_w)
+    out = (dirs, best, end_j, end_w)
+    return out + (e_all, f_all) if gaps else out
+
+
+def _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
+    from . import _build
+
+    global launches_dirs
+    B, N = q.shape
+    C = subst8.shape[0]
+    _check_inputs("K2", q, s, d_rows, subst8)
+    lib = _build.load("sw_band_dirs")
+    fn = lib.sw_band_dirs_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [
+        ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    dev = q.device
+    dirs = torch.empty((N, D + 1, B), dtype=torch.uint8, device=dev)
+    best, end_j, end_w = (torch.empty(B, dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    threads, smem, use_scratch = _launch_config(B, D, C)
+    scratch = (torch.empty(2 * (D + 1) * B, dtype=torch.int32, device=dev)
+               if use_scratch else None)
+    err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
+             subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
+             scratch.data_ptr() if scratch is not None else None,
+             threads, smem, dirs.data_ptr(), best.data_ptr(),
+             end_j.data_ptr(), end_w.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {err}")
+    launches_dirs += 1
+    return dirs, best, end_j, end_w
+
+
+def sw_band_align_device(q: torch.Tensor, s: torch.Tensor,
+                         d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
+                         gap_first: int, gap_extend: int):
+    """The banded DP with direction codes, for the host walk.
+
+    Same inputs as :func:`sw_band_score_device`.  Returns (dirs, best,
+    end_j, end_w): dirs (N, D+1, B) uint8, the code of cell (column j,
+    band offset w) of row b at dirs[j, w, b] (bits 0-1 the H source --
+    1 diagonal, 2 E, 3 F, 0 none --, 4 E extends, 8 F extends, 0 off
+    band); best (B,) int32 the row's best score; (end_j, end_w) (B,)
+    int32 the end cell the walk starts from (-1 for a score of 0).  CUDA
+    tensors launch K2; CPU tensors run :func:`sw_band_align_torch`."""
+    _check_shapes("K2", q, s, d_rows, subst8)
+    if q.is_cuda:
+        return _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first,
+                                   gap_extend)
+    return sw_band_align_torch(q, s, d_rows, subst8, D, gap_first,
+                               gap_extend)
+
+
+def traceback_banded(dirs: np.ndarray, b: int, end_j: int, end_w: int,
+                     D: int):
+    """Walk the direction codes of row ``b`` back from its end cell.
+
+    Port of lambda_tpu/ops/sw_band.py:traceback_banded on the port's
+    dirs layout (N, D+1, B), for a row whose best score is positive.
+    Returns (q0, s0, ops): 0-based window-relative starts and the
+    run-length op list ('M'/'D'/'I') of the sw_xla conventions."""
+    col = dirs[:, :, b]
+    N, W = col.shape
+    j, w = int(end_j), int(end_w)
+    ops: list[str] = []
+    state = "H"
+    while True:
+        code = int(col[j, w]) if (j >= 0 and 0 <= w < W) else 0
+        if state == "H":
+            h = code & 3
+            if h == 0 or j < 0 or (j + w - D) < 0:
+                break
+            if h == 1:
+                ops.append("M")
+                j -= 1            # w unchanged (diagonal)
+            elif h == 2:
+                state = "E"
+            else:
+                state = "F"
+        elif state == "E":
+            ops.append("D")
+            state = "E" if code & 4 else "H"
+            j -= 1
+            w += 1
+        else:
+            ops.append("I")
+            state = "F" if code & 8 else "H"
+            w -= 1
+    q0 = j + w - D + 1            # start coords (0-based, inclusive)
+    s0 = j + 1
+    ops.reverse()
+    rle: list[tuple[str, int]] = []
+    for op in ops:
+        if rle and rle[-1][0] == op:
+            rle[-1] = (op, rle[-1][1] + 1)
+        else:
+            rle.append((op, 1))
+    return q0, s0, rle
+
+
+def walk_rows(dirs, best, end_j, end_w, D: int):
+    """Host walk of every row of one K2 launch (device or host tensors):
+    (scores (B,) int64, traces) with traces[b] = (q0, s0, ops), or None
+    for a score of 0."""
+    dirs = dirs.cpu().numpy()
+    best, end_j, end_w = (t.cpu().numpy() for t in (best, end_j, end_w))
+    traces: list = [None] * len(best)
+    for b in np.flatnonzero(best > 0):
+        traces[b] = traceback_banded(dirs, b, end_j[b], end_w[b], D)
+    return best.astype(np.int64), traces
+
+
+def sw_band_align(q: np.ndarray, s: np.ndarray, d_rows: np.ndarray,
+                  subst_ext8, gap_first: int, gap_extend: int,
+                  device: str = "cuda"):
+    """Host API of the direction-emitting pass (the port of
+    ``sw_band_align_pallas``): runs K2 (or its plain version on the CPU)
+    and walks each row on the host.  Returns (scores, traces) with
+    traces[i] = (q0, s0, rle-ops), or None for a score of 0.  A query
+    wider than the window is clipped as in :func:`sw_band_score`."""
+    B, Mq = q.shape
+    Ns = s.shape[1]
+    D = int(d_rows.max()) if len(d_rows) else 0
+    pad_rank = int(np.asarray(subst_ext8).shape[0]) - 1
+    qp = np.full((B, Ns), pad_rank, dtype=np.int8)
+    qp[:, :min(Mq, Ns)] = q[:, :Ns]
+    dev = torch.device(device)
+    out = sw_band_align_device(
+        torch.as_tensor(qp, device=dev),
+        torch.as_tensor(np.ascontiguousarray(s, dtype=np.int8), device=dev),
+        torch.as_tensor(np.asarray(d_rows, dtype=np.int32), device=dev),
+        torch.as_tensor(np.asarray(subst_ext8, dtype=np.int8), device=dev),
+        D, gap_first, gap_extend)
+    return walk_rows(*out, D)

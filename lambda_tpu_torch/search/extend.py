@@ -8,17 +8,20 @@ Port of ``lambda_tpu/search/extend.py`` (itself a port of
   sqrt-band margin on the subject, sort, merge overlaps, swallow, dedup
   (host numpy + the native merge passes).
 * ``iterateMatchesFullSimd`` (:1178-1332) two-pass extension: pass 1
-  scores every candidate with K1 (``sw_scores_device``: windows gathered
-  on the device from the resident query/subject tensors), the caller
-  filters by bit score/e-value, pass 2 (``trace_pass``) runs the
-  traceback with alignment statistics in the host C++ helpers.
-  Candidates are bucketed by padded (qlen, band) shape class, one K1
-  launch per class.
+  scores every candidate with K1, or K3 in the sublane layout
+  (``sw_scores_device``: windows gathered on the device from the
+  resident query/subject tensors), the caller filters by bit
+  score/e-value, pass 2 (``trace_pass``) runs the traceback with
+  alignment statistics in the host C++ helpers, or, under
+  ``LAMBDA_SW_TRACE=device``, through K2 on the same device windows with
+  a host walk.  Candidates are bucketed by padded (qlen, band) shape
+  class, one launch per class.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -207,12 +210,26 @@ def _ext_geometry(m: MatchBatch):
 
 
 def trace_pass(m: MatchBatch, q_frames, s_window, subst_ext_fwd,
-               subst_ext_rev, gap_first, gap_extend, bs_split: bool):
+               subst_ext_rev, gap_first, gap_extend, bs_split: bool,
+               resident=None):
     """Pass 2: banded traceback + alignment statistics of the pass-1
     survivors in the host C++ helpers (the reference's compiled tail,
     search_algo.hpp:1296,1302-1325).  Returns (scores, traces, stats),
     stats the (B, 8) int32 array [align_length, matches, mismatches,
-    positives, gap_opens, gaps, insertions, deletions]."""
+    positives, gap_opens, gaps, insertions, deletions].
+
+    With ``LAMBDA_SW_TRACE=device`` (read at call time, as in the JAX
+    package) the traceback runs through K2 on the windows gathered from
+    ``resident`` = (trans_q, trans_sbj, sbj_offsets, sbj_lens) device
+    tensors, and stats is None: the caller then computes the statistics
+    per match (records.compute_alignment_stats)."""
+    if os.environ.get("LAMBDA_SW_TRACE") == "device":
+        if resident is None:
+            raise ValueError("LAMBDA_SW_TRACE=device needs the resident "
+                             "query/subject tensors")
+        sc, tr = _trace_device(m, resident, subst_ext_fwd, subst_ext_rev,
+                               gap_first, gap_extend, bs_split)
+        return sc, tr, None
     if len(m) == 0:
         return np.zeros(0, np.int64), [], np.zeros((0, 8), np.int32)
     pad = subst_ext_fwd.shape[0] - 1
@@ -232,14 +249,25 @@ def trace_pass(m: MatchBatch, q_frames, s_window, subst_ext_fwd,
         use_rev=rev, band=d_row.astype(np.int32), bs_mode=bs_split)
 
 
-def _device_score_bucket(trans_q, trans_sbj, sbj_offsets, sbj_lens,
-                         qry_id, qry_start, qry_len, subj_id, d_lo, d_row,
-                         subst_ext8, N, D, gap_first, gap_extend):
-    """One banded shape class, fully on the device: gather the query rows
-    and the VIRTUAL subject windows (start d_lo, length qlen + d_row;
-    positions outside the subject -> PAD), then launch K1."""
+def _gather_windows(resident, m: MatchBatch, idxs: np.ndarray, pad: int,
+                    N: int):
+    """The kernel inputs of one banded shape class, gathered on the
+    device from the resident tensors: (q, s, d_rows) with q (B, N) int8
+    the query rows, s (B, N) int8 the VIRTUAL subject windows (start
+    d_lo, length qlen + d_row; positions outside the subject -> PAD) and
+    d_rows (B,) int32.  ``resident`` is (trans_q, trans_sbj, sbj_offsets,
+    sbj_lens); K1, K2 and K3 launches share it."""
+    trans_q, trans_sbj, sbj_offsets, sbj_lens = resident
     dev = trans_q.device
-    pad = subst_ext8.shape[0] - 1
+    qlen, d_row, _ = _ext_geometry(m)
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a[idxs], dtype=np.int64),
+                               device=dev)
+
+    qry_id, qry_start, qry_len, subj_id, d_lo, d_rows = (
+        col(a) for a in (m.qry_id, m.qry_start, qlen, m.subj_id, m.d_lo,
+                         d_row))
     iq = torch.arange(N, device=dev)
     qidx = (qry_start[:, None] + iq[None, :]).clamp(0, trans_q.shape[1] - 1)
     qwin = trans_q[qry_id[:, None], qidx]
@@ -247,20 +275,31 @@ def _device_score_bucket(trans_q, trans_sbj, sbj_offsets, sbj_lens,
 
     spos = d_lo[:, None] + iq[None, :]           # subject coords
     sval = (spos >= 0) & (spos < sbj_lens[subj_id][:, None]) \
-        & (iq[None, :] < (qry_len + d_row)[:, None])
+        & (iq[None, :] < (qry_len + d_rows)[:, None])
     sabs = (sbj_offsets[subj_id][:, None] + spos).clamp(
         0, trans_sbj.shape[0] - 1)
     swin = torch.where(sval, trans_sbj[sabs], pad)
-    return sw_band.sw_band_score_device(
-        qwin.to(torch.int8).contiguous(), swin.to(torch.int8).contiguous(),
-        d_row.to(torch.int32), subst_ext8, D, gap_first, gap_extend)
+    return (qwin.to(torch.int8).contiguous(),
+            swin.to(torch.int8).contiguous(), d_rows.to(torch.int32))
+
+
+def _shape_classes(m: MatchBatch, e8_fwd, e8_rev, bs_split: bool, dev):
+    """(qlen bucket, band bucket, matrix) classes of ``m`` in launch
+    order, as (qbk, dbk, idxs, e8 tensor)."""
+    n = len(m)
+    qlen, d_row, _ = _ext_geometry(m)
+    rev = (m.subj_id % 2 == 1) if bs_split else np.zeros(n, dtype=bool)
+    e8 = {False: torch.as_tensor(e8_fwd, device=dev),
+          True: torch.as_tensor(e8_rev, device=dev)}
+    return [(qbk, dbk, np.asarray(idxs), e8[r]) for (qbk, dbk, r), idxs in
+            sorted(bucket_groups(qlen, d_row, rev).items())]
 
 
 def sw_scores_device(m: MatchBatch, d_trans_q, d_trans_sbj, d_sbj_offsets,
                      d_sbj_lens, e8_fwd, e8_rev, gap_first, gap_extend,
                      bs_split: bool, stats=None) -> np.ndarray:
     """Pass-1 banded scores with device-side window gathering, one K1
-    launch per (qlen bucket, band bucket, matrix) class.  (The JAX
+    (or K3) launch per (qlen bucket, band bucket, matrix) class.  (The JAX
     package merges classes by a cost model measured on the TPU; padding
     cannot change a score, so launching each class alone gives the same
     scores.)  ``stats`` records launches and rows per launch."""
@@ -268,29 +307,43 @@ def sw_scores_device(m: MatchBatch, d_trans_q, d_trans_sbj, d_sbj_offsets,
     scores = np.zeros(n, dtype=np.int64)
     if n == 0:
         return scores
-    dev = d_trans_q.device
-    qlen, d_row, wlen = _ext_geometry(m)
-    rev = (m.subj_id % 2 == 1) if bs_split else np.zeros(n, dtype=bool)
-    e8 = {False: torch.as_tensor(e8_fwd, device=dev),
-          True: torch.as_tensor(e8_rev, device=dev)}
+    resident = (d_trans_q, d_trans_sbj, d_sbj_offsets, d_sbj_lens)
     pending = []          # launch every class first, then sync once
-    for (qbk, dbk, r), idxs in sorted(bucket_groups(qlen, d_row,
-                                                    rev).items()):
-        idxs = np.asarray(idxs)
+    for qbk, dbk, idxs, e8 in _shape_classes(m, e8_fwd, e8_rev, bs_split,
+                                             d_trans_q.device):
         if stats is not None:
             stats.ext_dispatches += 1
             stats.ext_dispatch_rows += len(idxs)
-
-        def col(a):
-            return torch.as_tensor(np.asarray(a[idxs], dtype=np.int64),
-                                   device=dev)
-
-        out = _device_score_bucket(
-            d_trans_q, d_trans_sbj, d_sbj_offsets, d_sbj_lens,
-            col(m.qry_id), col(m.qry_start), col(qlen), col(m.subj_id),
-            col(m.d_lo), col(d_row), e8[r], qbk + dbk, dbk,
-            int(gap_first), int(gap_extend))
+        q, s, d_rows = _gather_windows(resident, m, idxs, e8.shape[0] - 1,
+                                       qbk + dbk)
+        out = sw_band.sw_band_score_device(q, s, d_rows, e8, dbk,
+                                           int(gap_first), int(gap_extend))
         pending.append((idxs, out))
     for idxs, out in pending:
         scores[idxs] = out.cpu().numpy()
     return scores
+
+
+def _trace_device(m: MatchBatch, resident, subst_ext_fwd, subst_ext_rev,
+                  gap_first, gap_extend, bs_split: bool):
+    """Pass 2 through K2: one launch per shape class on windows gathered
+    from the resident tensors, then the host walk of every row.  Returns
+    (scores, traces) in the conventions of the host path."""
+    n = len(m)
+    scores = np.zeros(n, dtype=np.int64)
+    traces: list = [None] * n
+    e8_fwd = sw_band.ext8_from_ext32(subst_ext_fwd)
+    e8_rev = sw_band.ext8_from_ext32(subst_ext_rev)
+    pending = []          # launch every class first, then walk
+    for qbk, dbk, idxs, e8 in _shape_classes(m, e8_fwd, e8_rev, bs_split,
+                                             resident[0].device):
+        q, s, d_rows = _gather_windows(resident, m, idxs, e8.shape[0] - 1,
+                                       qbk + dbk)
+        pending.append((idxs, dbk, sw_band.sw_band_align_device(
+            q, s, d_rows, e8, dbk, int(gap_first), int(gap_extend))))
+    for idxs, dbk, out in pending:
+        sc, tr = sw_band.walk_rows(*out, dbk)
+        scores[idxs] = sc
+        for i, t in zip(idxs, tr):
+            traces[i] = t
+    return scores, traces

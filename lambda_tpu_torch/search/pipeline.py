@@ -10,9 +10,11 @@ host                                      device
 load index, queries                       k-mer index tensors
 frame generation + seed schedule    ->    fused seeding (search/seeding.py)
 packed hits + stats vector          <-
-widen/merge matches (numpy + C++)   ->    pass 1: K1 banded scores
+widen/merge matches (numpy + C++)   ->    pass 1: K1 (or K3) banded scores
 bit-score/e-value filters           <-
-pass 2: traceback + alignment stats (host C++),
+pass 2: traceback + alignment stats (host C++),   [LAMBDA_SW_TRACE=device:
+                                                    K2 direction codes,
+        host walk + per-match stats           <-    walked on the host]
 %id filter, record sort/dedup, m8/m9 writing
 
 The two-phase iterative search (search0; search_algo.hpp:1391-1460) runs
@@ -440,11 +442,13 @@ class SearchContext:
             return {}
         m2 = m.take(idxs)
 
-        # --- pass 2: traceback + inline alignment stats (host C++)
+        # --- pass 2: traceback + inline alignment stats (host C++), or
+        # K2 + a host walk under LAMBDA_SW_TRACE=device (astats None)
         with stats.timed("time_extend_trace"):
             scores2b, traces, astats = extend.trace_pass(
                 m2, trans, self.s_windows, self.sw_fwd, self.sw_rev, gf, ge,
-                self.bs_mode)
+                self.bs_mode, resident=(sd.d_trans_q, self.d_trans_sbj,
+                                        self.d_sbj_offsets, self.d_sbj_lens))
 
         out: dict[int, list[records.BlastMatch]] = {}
         for i in range(len(m2)):
@@ -459,7 +463,6 @@ class SearchContext:
                                           idx.red_alph)
             consumed_q = sum(r for op, r in ops if op in ("M", "I"))
             consumed_s = sum(r for op, r in ops if op in ("M", "D"))
-            st8 = astats[i]
             bm = records.BlastMatch(
                 n_q_id=n_q,
                 n_s_id=n_s,
@@ -477,18 +480,29 @@ class SearchContext:
                 qry_frame_id=qry_id,
                 subj_frame_id=subj_id,
             )
-            bm.align_length = int(st8[0])
-            bm.num_matches = int(st8[1])
-            bm.num_mismatches = int(st8[2])
-            bm.num_positives = int(st8[3])
-            bm.num_gap_opens = int(st8[4])
-            bm.num_gaps = int(st8[5])
-            bm.num_insertions = int(st8[6])
-            bm.num_deletions = int(st8[7])
-            bm.identity = (100.0 * bm.num_matches / bm.align_length
-                           if bm.align_length else 0.0)
-            bm.similarity = (100.0 * bm.num_positives / bm.align_length
-                             if bm.align_length else 0.0)
+            if astats is not None:
+                st8 = astats[i]
+                bm.align_length = int(st8[0])
+                bm.num_matches = int(st8[1])
+                bm.num_mismatches = int(st8[2])
+                bm.num_positives = int(st8[3])
+                bm.num_gap_opens = int(st8[4])
+                bm.num_gaps = int(st8[5])
+                bm.num_insertions = int(st8[6])
+                bm.num_deletions = int(st8[7])
+                bm.identity = (100.0 * bm.num_matches / bm.align_length
+                               if bm.align_length else 0.0)
+                bm.similarity = (100.0 * bm.num_positives / bm.align_length
+                                 if bm.align_length else 0.0)
+            else:
+                use_rev = self.bs_mode and subj_id % 2 == 1
+                sch = self.align_rev if use_rev else self.align_fwd
+                records.compute_alignment_stats(
+                    bm, trans[qry_id],
+                    self.s_windows.concat[
+                        idx.trans_offsets[subj_id]:
+                        idx.trans_offsets[subj_id + 1]],
+                    sch.matrix, self.bs_mode)
 
             # %identity filter (search_algo.hpp:1310-1315)
             if bm.identity < opt.id_cutoff:

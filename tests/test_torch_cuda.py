@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from lambda_tpu_torch.ops import sw_band
+from lambda_tpu_torch.ops import sw_band, sw_rect
 
 GF, GE = -12, -1
 
@@ -58,3 +58,74 @@ def test_k1_refuses_wrong_dtype(card):
                    for x in _case(1, 8, 20, 7))
     with pytest.raises(ValueError):
         sw_band.sw_band_score_device(q.to(torch.int32), s, d, e8, 7, GF, GE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [7, 39, 127, 1023])
+def test_k2_matches_plain_version(card, D):
+    """K2 (csrc/sw_band_dirs.cu) == the plain PyTorch version: the codes
+    of every cell, the best scores and the end cells, exactly; one launch
+    per call."""
+    args = [torch.as_tensor(x, device=card) for x in _case(D, 64, 48 + D, D)]
+    before = sw_band.launches_dirs
+    got = sw_band.sw_band_align_device(*args, D, GF, GE)
+    assert sw_band.launches_dirs == before + 1
+    want = sw_band.sw_band_align_torch(*args, D, GF, GE)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert int(got[1][3]) == 0 and int(got[1].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [0, 7, 39, 127, 1023, 3000])
+def test_k3_matches_plain_version(card, monkeypatch, D):
+    """K3 (csrc/sw_band_sub.cu, LAMBDA_SWB_LAYOUT=sublane) == the plain
+    version of K1, exactly; one launch per call; D above the widest band
+    bucket takes the global-scratch path."""
+    monkeypatch.setattr(sw_band, "_LAYOUT", "sublane")
+    args = [torch.as_tensor(x, device=card) for x in _case(D, 40, 30 + D, D)]
+    before = sw_band.launches_sub, sw_band.launches
+    got = sw_band.sw_band_score_device(*args, D, GF, GE)
+    assert (sw_band.launches_sub, sw_band.launches) == \
+        (before[0] + 1, before[1])
+    want = sw_band.sw_band_score_torch(*args, D, GF, GE)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int(got[3]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(1, 9), (20, 31), (128, 300), (700, 900),
+                                 (16384, 64)])
+def test_k4_matches_plain_version(card, M, N):
+    """K4 (csrc/sw_rect.cu) == its plain PyTorch version, exactly; one
+    launch per call."""
+    rng = np.random.default_rng(M)
+    A = 24
+    subst = rng.integers(-4, 6, size=(A, A)).astype(np.int32)
+    np.fill_diagonal(subst, rng.integers(4, 12, size=A))
+    e8 = sw_band.extend_matrix8(subst)
+    B = 12
+    q = rng.integers(0, A, size=(B, M)).astype(np.int8)
+    s = rng.integers(0, A, size=(B, N)).astype(np.int8)
+    n = min(M, N)
+    s[::2, :n] = q[::2, :n]
+    q[1, M // 2:] = A                      # trailing PAD
+    args = [torch.as_tensor(x, device=card) for x in (q, s, e8)]
+    before = sw_rect.launches
+    got = sw_rect.sw_score_device(*args, GF, GE)
+    assert sw_rect.launches == before + 1
+    want = sw_rect.sw_score_torch(*args, GF, GE)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_k2_k3_k4_refuse_wrong_dtype(card, monkeypatch):
+    q, s, d, e8 = (torch.as_tensor(x, device=card)
+                   for x in _case(1, 8, 20, 7))
+    with pytest.raises(ValueError):
+        sw_band.sw_band_align_device(q, s, d.to(torch.int64), e8, 7, GF, GE)
+    monkeypatch.setattr(sw_band, "_LAYOUT", "sublane")
+    with pytest.raises(ValueError):
+        sw_band.sw_band_score_device(q.to(torch.int32), s, d, e8, 7, GF, GE)
+    with pytest.raises(ValueError):
+        sw_rect.sw_score_device(q, s.to(torch.int32), e8, GF, GE)

@@ -89,3 +89,24 @@ def test_port_output_independent_of_batch_size(e2e_case):
                          device="cpu")
         outs.append(out.read_bytes())
     assert outs[0] == outs[1] and outs[0]
+
+
+@pytest.mark.parametrize("kw", [{}, dict(iterative_search=False)],
+                         ids=["default", "one_phase"])
+def test_device_trace_matches_jax_and_default(e2e_case, monkeypatch, kw):
+    """LAMBDA_SW_TRACE=device (pass 2 through K2's plain version and the
+    host walk, statistics per match) gives the same m8 as JAX under the
+    same variable and as the port's own default (host C++) pass 2."""
+    d = e2e_case
+    tag = "_".join(kw) or "default"
+    tpipe.run_search(_search(topt, d, d / f"port_host_{tag}.m8", **kw),
+                     device="cpu")
+    monkeypatch.setenv("LAMBDA_SW_TRACE", "device")
+    jpipe.run_search(_search(jopt, d, d / f"jax_dev_{tag}.m8", **kw))
+    tpipe.run_search(_search(topt, d, d / f"port_dev_{tag}.m8", **kw),
+                     device="cpu")
+    host, want, got = ((d / f"{who}_{tag}.m8").read_bytes()
+                       for who in ("port_host", "jax_dev", "port_dev"))
+    assert len(want) > 2000, "fixture found too few hits"
+    assert got == want
+    assert got == host

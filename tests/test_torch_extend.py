@@ -103,3 +103,38 @@ def test_trace_pass_matches_jax(matches):
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1] == want[1]
     np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_trace_pass_device_matches_jax_and_host(matches, monkeypatch):
+    """LAMBDA_SW_TRACE=device: pass 2 through K2's path (device-side
+    window gather, plain K2 on the CPU, host walk) gives JAX's scores and
+    traces under the same variable and the default host pass's, with no
+    statistics array."""
+    jm, _ = _merged(jx, matches)
+    sch = scoring.make_protein_scheme(62, -11, -1)
+    ext = sw_xla.extend_matrix(sch.matrix)
+    gf, ge = sch.dp_gap_first, sch.dp_gap_extend
+    jw = jx.SubjectWindows(matches["trans_concat"], matches["offsets"])
+    tw = tx.SubjectWindows(matches["trans_concat"], matches["offsets"])
+    tm = tx.MatchBatch(*jm._arrays())
+    host = tx.trace_pass(tm, matches["trans_q"], tw, ext, ext, gf, ge, False)
+    trans_q = matches["trans_q"]
+    tq = np.zeros((len(trans_q), max(map(len, trans_q))), np.int8)
+    for g, f in enumerate(trans_q):
+        tq[g, :len(f)] = f
+    resident = (torch.as_tensor(tq), torch.as_tensor(matches["trans_concat"]),
+                torch.as_tensor(matches["offsets"][:-1].astype(np.int64)),
+                torch.as_tensor(matches["offsets"][1:]
+                                - matches["offsets"][:-1]))
+    monkeypatch.setenv("LAMBDA_SW_TRACE", "device")
+    want = jx.trace_pass(jm, trans_q, jw, ext, ext, gf, ge, False)
+    got = tx.trace_pass(tm, trans_q, tw, ext, ext, gf, ge, False,
+                        resident=resident)
+    assert got[2] is None and want[2] is None
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], host[0])
+    assert got[1] == host[1]
+    assert sum(t is not None for t in got[1]) > 20
+    with pytest.raises(ValueError):
+        tx.trace_pass(tm, trans_q, tw, ext, ext, gf, ge, False)

@@ -11,17 +11,18 @@ from tests.test_e2e import REPO
 from tests.test_golden import GOLDEN, _fixtures, _normalize
 
 
-def run_port_cli(*args, home) -> subprocess.CompletedProcess:
+def run_port_cli(*args, home, **env_extra) -> subprocess.CompletedProcess:
     env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
-           "HOME": str(home), "OMP_NUM_THREADS": "2"}
+           "HOME": str(home), "OMP_NUM_THREADS": "2", **env_extra}
     return subprocess.run(
         [sys.executable, "-m", "lambda_tpu_torch.cli", *args],
         capture_output=True, text=True, cwd=REPO, env=env, check=False)
 
 
-@pytest.mark.parametrize("name,suffix", [("blastp_m8", ".m8"),
-                                         ("blastp_m9", ".m9")])
-def test_port_cli_matches_blastp_golden(name, suffix, tmp_path):
+GOLDEN_CASES = [("blastp_m8", ".m8"), ("blastp_m9", ".m9")]
+
+
+def _search_golden(name, suffix, tmp_path, **env):
     db, q = _fixtures(tmp_path)[name]
     lit = tmp_path / "db.lit"
     r = run_port_cli("mkindexp", "-d", str(db), "-i", str(lit), "-v", "0",
@@ -30,7 +31,23 @@ def test_port_cli_matches_blastp_golden(name, suffix, tmp_path):
     out = tmp_path / f"{name}{suffix}"
     r = run_port_cli("searchp", "-q", str(q), "-i", str(lit), "-o", str(out),
                      "--version-to-outputfile", "0", "-v", "0",
-                     "--device", "cpu", home=tmp_path)
+                     "--device", "cpu", home=tmp_path, **env)
+    return r, out
+
+
+@pytest.mark.parametrize("name,suffix", GOLDEN_CASES)
+def test_port_cli_matches_blastp_golden(name, suffix, tmp_path):
+    r, out = _search_golden(name, suffix, tmp_path)
+    assert r.returncode == 0, r.stderr
+    got = _normalize(out.read_bytes())
+    assert got == (GOLDEN / f"{name}{suffix}").read_bytes()
+
+
+@pytest.mark.parametrize("name,suffix", GOLDEN_CASES)
+def test_port_cli_device_trace_matches_blastp_golden(name, suffix, tmp_path):
+    """Pass 2 through K2's path (LAMBDA_SW_TRACE=device): the same bytes."""
+    r, out = _search_golden(name, suffix, tmp_path,
+                            LAMBDA_SW_TRACE="device")
     assert r.returncode == 0, r.stderr
     got = _normalize(out.read_bytes())
     assert got == (GOLDEN / f"{name}{suffix}").read_bytes()

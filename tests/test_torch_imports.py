@@ -99,3 +99,28 @@ def test_misc_gz_writer_matches_jax_package(tmp_path):
         (tmp_path / "jax.m8.gz").read_bytes()
     assert gzip.decompress((tmp_path / "port.m8.gz").read_bytes()).decode() \
         == text
+
+
+@pytest.mark.parametrize("module,counters", [
+    ("lambda_tpu_torch.ops.sw_band",
+     ("launches", "launches_dirs", "launches_sub")),
+    ("lambda_tpu_torch.ops.sw_rect", ("launches",)),
+    ("lambda_tpu_torch.search.extend", ()),
+])
+def test_kernel_modules_import_alone_without_jax(module, counters):
+    """Each kernel module (K1-K4) and the extension module import on
+    their own with no JAX and nothing of lambda_tpu, and hold an integer
+    launch counter per kernel."""
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        f"for c in {counters!r}:\n"
+        "    assert isinstance(getattr(m, c), int), c\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith(('jax.', 'jaxlib'))\n"
+        "             or n == 'lambda_tpu' or n.startswith('lambda_tpu.'))\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True,
+                       env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr

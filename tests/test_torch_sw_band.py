@@ -125,3 +125,41 @@ def test_x_drop_not_ported():
             *(torch.as_tensor(x) for x in (q.astype(np.int8),
                                            s.astype(np.int8), d, e8)),
             7, GF, GE, x_drop=20)
+
+
+@pytest.mark.parametrize("D", [7, 39, 127])
+def test_plain_matches_jax_sublane_kernel(monkeypatch, small_tiles, D):
+    """K3: the JAX sublane-layout kernel (LAMBDA_SWB_LAYOUT=sublane) in
+    interpret mode computes K1's function, so the port holds it against
+    the same plain version."""
+    monkeypatch.setattr(jsw, "_LAYOUT", "sublane")
+    subst, e8, q, s, d = _case(300 + D, 6, 24, 24 + D, D)
+    want = jsw.sw_band_score_pallas(q, s, d, e8, GF, GE, interpret=True)
+    got = tsw.sw_band_score(q, s, d, e8, GF, GE, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert list(got) == _reference(q, s, d, subst)
+
+
+def test_sublane_layout_latch_and_x_drop(monkeypatch):
+    """The layout is latched from LAMBDA_SWB_LAYOUT at import, as in the
+    JAX package, and the sublane layout refuses X-drop (sw_band.py:868)."""
+    import importlib
+    import os
+
+    assert tsw._LAYOUT == os.environ.get("LAMBDA_SWB_LAYOUT", "lane")
+    monkeypatch.setattr(tsw, "_LAYOUT", "sublane")
+    subst, e8, q, s, d = _case(4, 2, 17, 17, 7)
+    args = [torch.as_tensor(x) for x in (q.astype(np.int8),
+                                         s.astype(np.int8), d, e8)]
+    with pytest.raises(NotImplementedError, match="lane layout"):
+        tsw.sw_band_score_device(*args, 7, GF, GE, x_drop=20)
+    # CPU tensors run the plain version in either layout
+    np.testing.assert_array_equal(
+        tsw.sw_band_score_device(*args, 7, GF, GE).numpy(),
+        tsw.sw_band_score_torch(*args, 7, GF, GE).numpy())
+    monkeypatch.setenv("LAMBDA_SWB_LAYOUT", "sublane")
+    try:
+        assert importlib.reload(tsw)._LAYOUT == "sublane"
+    finally:
+        monkeypatch.delenv("LAMBDA_SWB_LAYOUT")
+        importlib.reload(tsw)
