@@ -35,12 +35,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
                mkindexp / searchp with default options; K1 launch count,
                q/s, per-phase seconds, homolog hit share; K1 held against
                the plain version on the first pass-1 launches' inputs;
-               the same queries again on the same resident index with
-               LAMBDA_SW_TRACE=device (K2) and with the sublane layout
-               (K3), each m8 byte-equal to the default run's and each
-               kernel held against its plain version on its first three
-               launches' inputs; one more pass of the default batches
-               under torch.profiler for the device's busy time
+               then three rounds of the same queries on the same
+               resident index, each round once with default options,
+               once with LAMBDA_SW_TRACE=device (K2) and once with the
+               sublane layout (K3): every m8 byte-equal to the default
+               run's, K2 and K3 held against their plain version on their
+               first three launches' inputs in the first round, and the
+               spread of search seconds per mode; one more pass of the
+               default batches under torch.profiler for the device's
+               busy time
 
 then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
 """
@@ -64,14 +67,12 @@ import torch
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT32_LANES_PER_SM = 64            # Hopper white paper: 64 INT32 units/SM
-K1_OPS_PER_CELL = 11               # 5 int32 adds + 6 int32 maxes
-# counted in each kernel's source, per needed cell:
-# K2: K1's work + the code and the end-cell key (7 adds, 5 maxes,
-#     10 compares); K3 and K4: 9 in the first sweep of a run + 5 in the
-#     second (the scan's per-thread steps not counted)
+# int32 operations per needed cell of the function each kernel computes
+# (not of how it computes it): the affine SW recurrence of K1, K3 and K4
+# needs 5 adds + 6 maxes (E, diag, H before F, F, H, best); K2 must also
+# produce the code and the end-cell key (7 adds, 5 maxes, 10 compares)
+OPS_PER_CELL = 11
 K2_OPS_PER_CELL = 22
-K3_OPS_PER_CELL = 14
-K4_OPS_PER_CELL = 14
 KERNELS = ("sw_band", "sw_band_dirs", "sw_band_sub", "sw_rect")
 AA = "ARNDCQEGHILKMFPSTWYV"
 GYRA = (
@@ -198,12 +199,12 @@ def k1_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=5,
     if kernel == "K1":
         def launch():
             return sw_band.sw_band_score_device(q, s, d_rows, e8, D, gf, ge)
-        counter, per_cell = "launches", K1_OPS_PER_CELL
+        counter = "launches"
     else:
         def launch():
             return sw_band._sw_band_score_sub_cuda(q, s, d_rows, e8, D, gf,
                                                    ge)
-        counter, per_cell = "launches_sub", K3_OPS_PER_CELL
+        counter = "launches_sub"
     def plain():
         return sw_band.sw_band_score_torch(q, s, d_rows, e8, D, gf, ge)
 
@@ -220,7 +221,7 @@ def k1_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=5,
                 max_abs_err=err, exact_equal=err == 0,
                 max_score=int(out_k.max()) if len(out_k) else 0,
                 ms=k_ms, plain_ms=p_ms,
-                **bound(per_cell * cells, nbytes, dev_info),
+                **bound(OPS_PER_CELL * cells, nbytes, dev_info),
                 inband_cells=cells,
                 rect_gcups=rect / (k_ms * 1e-3) / 1e9,
                 inband_gcups=cells / (k_ms * 1e-3) / 1e9)
@@ -245,8 +246,7 @@ def k2_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=3,
     all_bits = torch.equal(dk, dp)
     h_eq = e_eq = f_eq = all_bits
     if not all_bits:
-        E, F = sw_band.sw_band_align_torch(q, s, d_rows, e8, D, gf, ge,
-                                           gaps=True)[4:]
+        E, F = gap_values(q, s, d_rows, e8, D, gf, ge)
         w = torch.arange(D + 1, device=q.device)
         d64 = d_rows.to(torch.int64)
         in_band = ((w[None, :, None] >= (D - d64)[None, None, :])
@@ -283,6 +283,16 @@ def k2_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=3,
                 inband_gcups=cells / (k_ms * 1e-3) / 1e9)
 
 
+def gap_values(q, s, d_rows, e8, D, gf, ge):
+    """E and F of every cell, (N, D+1, B) int32 each, from the plain sweep
+    K2's plain codes come from."""
+    from lambda_tpu_torch.ops import sw_band
+
+    cols = [(E.T, F.T) for _, _, _, E, _, F, _ in sw_band._band_sweep(
+        q, s, d_rows, e8, D, gf, ge)]
+    return tuple(torch.stack(x) for x in zip(*cols))
+
+
 def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
     """K4 vs its plain version on the same card tensors: exact equality
     (and of ``host_out``, the host entry point's result, when given),
@@ -308,7 +318,7 @@ def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
     return dict(B=int(B), M=int(M), N=int(N), max_abs_err=err,
                 exact_equal=err == 0, max_score=int(out_k.max()),
                 ms=k_ms, plain_ms=p_ms,
-                **bound(K4_OPS_PER_CELL * cells, nbytes, dev_info),
+                **bound(OPS_PER_CELL * cells, nbytes, dev_info),
                 cells=cells, gcups=cells / (k_ms * 1e-3) / 1e9)
 
 
@@ -510,6 +520,8 @@ def write_fasta(path, recs) -> None:
 # kernel each one routes to
 MODES = {"default": "launches", "device_trace": "launches_dirs",
          "sublane": "launches_sub"}
+# rounds of reruns of all three modes after the scale phase's main run
+RERUN_ROUNDS = 3
 
 
 @contextlib.contextmanager
@@ -700,10 +712,28 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     cmp = [k1_compare(*x[:4], x[4], x[5], x[6], dev_info, reps=3)
            for x in rec["k1_inputs"]]
     want_m8 = (tmp / "big.m8").read_bytes()
-    reruns = {mode: rerun_search(rec["ctx"], tmp, mode, want_m8, dev_info,
-                                 n_q) for mode in ("device_trace", "sublane")}
-    prof = profile_search(rec.pop("ctx"), opt)
     search_s = t1 - rec["ready"]
+    # RERUN_ROUNDS rounds of all three modes on the same resident index:
+    # each switch's run, and the spread of the host-bound search; the
+    # kernels are held against their plain versions in the first round
+    reruns: dict = {}
+    spread = {m: {"search_s": [], "time_extend_trace_s": []} for m in MODES}
+    spread["default"]["search_s"].append(round(search_s, 3))
+    spread["default"]["time_extend_trace_s"].append(
+        round(stats.time_extend_trace, 3))
+    for rnd in range(RERUN_ROUNDS):
+        for mode in MODES:
+            check = rnd == 0 and mode != "default"
+            r = rerun_search(rec["ctx"], tmp, mode, want_m8, dev_info, n_q,
+                             rnd, check)
+            if check:
+                reruns[mode] = r
+            for k in ("search_s", "time_extend_trace_s"):
+                spread[mode][k].append(r[k])
+    emit(phase="scale_spread", rounds=RERUN_ROUNDS, runs=spread,
+         median_search_s={m: float(np.median(v["search_s"]))
+                          for m, v in spread.items()})
+    prof = profile_search(rec.pop("ctx"), opt)
     emit(phase="scale", db_residues=n_subj * length, subjects=n_subj,
          queries=n_q, gen_s=round(gen_s, 2), index_build_s=round(build_s, 2),
          resident_bytes=rec.get("resident_bytes"),
@@ -738,24 +768,26 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
 
 
 def rerun_search(ctx, tmp: Path, mode: str, want_m8: bytes, dev_info,
-                 n_q: int) -> dict:
+                 n_q: int, rnd: int, check: bool) -> dict:
     """The scale phase's queries again through run_search on the SAME
-    resident index (SearchContext is handed the loaded context), with one
-    switch on: its kernel's launches counted from 0, the m8 held
-    byte-equal to the default run's, and the kernel held against its
-    plain version on its first three launches' inputs."""
+    resident index (SearchContext is handed the loaded context), with the
+    ``mode``'s switch on: its kernel's launches counted from 0 and the m8
+    held byte-equal to the default run's.  With ``check`` the kernel is
+    also held against its plain version on its first three launches'
+    inputs."""
     from lambda_tpu_torch import options as opt_mod
     from lambda_tpu_torch.ops import sw_band
     from lambda_tpu_torch.search import pipeline
 
     counter = MODES[mode]
-    wrapper = {"device_trace": "_sw_band_align_cuda",
+    wrapper = {"default": "_sw_band_score_cuda",
+               "device_trace": "_sw_band_align_cuda",
                "sublane": "_sw_band_score_sub_cuda"}[mode]
     launch = getattr(sw_band, wrapper)
     captured: list = []
 
     def hook(*a):
-        if len(captured) < 3:
+        if check and len(captured) < 3:
             captured.append(tuple(x.clone() if torch.is_tensor(x) else x
                                   for x in a))
         return launch(*a)
@@ -784,7 +816,7 @@ def rerun_search(ctx, tmp: Path, mode: str, want_m8: bytes, dev_info,
     else:
         cmp = [k1_compare(*x, dev_info, reps=3, plain_reps=0, kernel="K3")
                for x in captured]
-    emit(phase="scale_rerun", mode=mode, m8_equal_default=same,
+    emit(phase="scale_rerun", mode=mode, round=rnd, m8_equal_default=same,
          search_s=round(search_s, 3),
          queries_per_s=round(n_q / search_s, 2),
          time_extend_s=round(stats.time_extend, 3),
@@ -801,12 +833,13 @@ def rerun_search(ctx, tmp: Path, mode: str, want_m8: bytes, dev_info,
     if not same:
         raise SystemExit(f"the {mode} run's m8 differs from the default "
                          "run's")
-    if n[counter] <= 0 or not cmp:
+    if n[counter] <= 0 or (check and not cmp):
         raise SystemExit(f"the {mode} run launched its kernel no time")
     if not all(c["exact_equal"] for c in cmp):
         raise SystemExit(f"the {mode} run's kernel disagrees with its plain "
                          "version on main-path inputs")
-    return dict(launches=n[counter], cmp=cmp)
+    return dict(launches=n[counter], cmp=cmp, search_s=round(search_s, 3),
+                time_extend_trace_s=round(stats.time_extend_trace, 3))
 
 
 def profile_search(ctx, opt) -> dict:

@@ -143,10 +143,12 @@ def sw_band_score_torch(q: torch.Tensor, s: torch.Tensor,
     return best
 
 
-def _check_inputs(kernel, q, s, d_rows, subst8):
-    for name, t, dt in (("q", q, torch.int8), ("s", s, torch.int8),
-                        ("d_rows", d_rows, torch.int32),
-                        ("subst8", subst8, torch.int8)):
+def check_cuda_inputs(kernel, **tensors):
+    """Refuse a launch unless every tensor is contiguous on the card with
+    its kernel's dtype: int32 for ``d_rows``, int8 for ranks and matrix
+    (K1-K4)."""
+    for name, t in tensors.items():
+        dt = torch.int32 if name == "d_rows" else torch.int8
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be a contiguous CUDA "
                              f"{dt} tensor (got {t.dtype} on {t.device})")
@@ -169,7 +171,8 @@ def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
     global launches
     B, N = q.shape
     C = subst8.shape[0]
-    _check_inputs("K1", q, s, d_rows, subst8)
+    check_cuda_inputs("K1", q=q, s=s, d_rows=d_rows,
+                      subst8=subst8)
     lib = _build.load("sw_band")
     fn = lib.sw_band_score_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
@@ -255,7 +258,8 @@ def _sw_band_score_sub_cuda(q, s, d_rows, subst8, D, gap_first,
     global launches_sub
     B, N = q.shape
     C = subst8.shape[0]
-    _check_inputs("K3", q, s, d_rows, subst8)
+    check_cuda_inputs("K3", q=q, s=s, d_rows=d_rows,
+                      subst8=subst8)
     lib = _build.load("sw_band_sub")
     fn = lib.sw_band_sub_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
@@ -313,21 +317,14 @@ def sw_band_score(q: np.ndarray, s: np.ndarray, d_rows: np.ndarray,
 
 def sw_band_align_torch(q: torch.Tensor, s: torch.Tensor,
                         d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
-                        gap_first: int, gap_extend: int, gaps: bool = False):
+                        gap_first: int, gap_extend: int):
     """Plain PyTorch version of K2 (:func:`_band_sweep` plus the codes).
-    Same arguments and results as :func:`sw_band_align_device`; with
-    ``gaps`` it also returns the E and F value of every cell, (N, D+1, B)
-    int32 each, for the tests that hold an extend bit only where the gap
-    value it describes is positive."""
+    Same arguments and results as :func:`sw_band_align_device`."""
     B, N = q.shape
     dev = q.device
     W = D + 1
     gf, ge = int(gap_first), int(gap_extend)
     dirs = torch.zeros((N, W, B), dtype=torch.uint8, device=dev)
-    e_all = f_all = None
-    if gaps:
-        e_all = torch.empty((N, W, B), dtype=torch.int32, device=dev)
-        f_all = torch.empty((N, W, B), dtype=torch.int32, device=dev)
     w = torch.arange(W, device=dev)
     wmin = (D - d_rows.to(torch.int64))[:, None]
     best = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -348,9 +345,6 @@ def sw_band_align_torch(q: torch.Tensor, s: torch.Tensor,
                  >= torch.cat([zero_col, H[:, :-1]], dim=1) + gf)
         code = code | torch.where(f_ext & (w[None, :] > wmin), 8, 0)
         dirs[j] = torch.where(valid, code, 0).to(torch.uint8).T
-        if gaps:
-            e_all[j] = E.T
-            f_all[j] = F.T
         # end cell: max H, then smallest i + j (key 2j + w), then
         # smallest i (a later column); within a column the first w at
         # the column's maximum has the smallest key
@@ -364,8 +358,7 @@ def sw_band_align_torch(q: torch.Tensor, s: torch.Tensor,
         key = torch.where(upd, col_key, key)
         end_j = torch.where(upd, j, end_j)
         end_w = torch.where(upd, col_w.to(torch.int32), end_w)
-    out = (dirs, best, end_j, end_w)
-    return out + (e_all, f_all) if gaps else out
+    return dirs, best, end_j, end_w
 
 
 def _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
@@ -374,7 +367,8 @@ def _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
     global launches_dirs
     B, N = q.shape
     C = subst8.shape[0]
-    _check_inputs("K2", q, s, d_rows, subst8)
+    check_cuda_inputs("K2", q=q, s=s, d_rows=d_rows,
+                      subst8=subst8)
     lib = _build.load("sw_band_dirs")
     fn = lib.sw_band_dirs_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [

@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .sw_band import NEG32, team_config
+from .sw_band import NEG32, check_cuda_inputs, team_config
 
 # the JAX package's query-length limit (sw_pallas.py:55), kept so both
 # packages accept the same inputs
@@ -77,10 +77,7 @@ def _sw_score_cuda(q, s, subst8, gap_first, gap_extend):
     B, M = q.shape
     N = s.shape[1]
     C = subst8.shape[0]
-    for name, t in (("q", q), ("s", s), ("subst8", subst8)):
-        if not t.is_cuda or t.dtype != torch.int8 or not t.is_contiguous():
-            raise ValueError(f"K4: {name} must be a contiguous CUDA int8 "
-                             f"tensor (got {t.dtype} on {t.device})")
+    check_cuda_inputs("K4", q=q, s=s, subst8=subst8)
     lib = _build.load("sw_rect")
     fn = lib.sw_rect_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [

@@ -443,7 +443,9 @@ class SearchContext:
         m2 = m.take(idxs)
 
         # --- pass 2: traceback + inline alignment stats (host C++), or
-        # K2 + a host walk under LAMBDA_SW_TRACE=device (astats None)
+        # K2 + a host walk under LAMBDA_SW_TRACE=device (astats None; its
+        # per-match stats below are timed into the same bucket, so
+        # time_extend_trace covers the same work on both paths)
         with stats.timed("time_extend_trace"):
             scores2b, traces, astats = extend.trace_pass(
                 m2, trans, self.s_windows, self.sw_fwd, self.sw_rev, gf, ge,
@@ -497,12 +499,13 @@ class SearchContext:
             else:
                 use_rev = self.bs_mode and subj_id % 2 == 1
                 sch = self.align_rev if use_rev else self.align_fwd
-                records.compute_alignment_stats(
-                    bm, trans[qry_id],
-                    self.s_windows.concat[
-                        idx.trans_offsets[subj_id]:
-                        idx.trans_offsets[subj_id + 1]],
-                    sch.matrix, self.bs_mode)
+                with stats.timed("time_extend_trace"):
+                    records.compute_alignment_stats(
+                        bm, trans[qry_id],
+                        self.s_windows.concat[
+                            idx.trans_offsets[subj_id]:
+                            idx.trans_offsets[subj_id + 1]],
+                        sch.matrix, self.bs_mode)
 
             # %identity filter (search_algo.hpp:1310-1315)
             if bm.identity < opt.id_cutoff:

@@ -84,8 +84,17 @@ def _port_dirs(q, s, d, e8, gf, ge):
     qp = np.full((q.shape[0], Ns), e8.shape[0] - 1, np.int8)
     qp[:, :min(q.shape[1], Ns)] = q[:, :Ns]
     args = [torch.as_tensor(x) for x in (qp, s.astype(np.int8), d, e8)]
-    return [x.numpy() for x in tsw.sw_band_align_torch(*args, D, gf, ge,
-                                                       gaps=True)]
+    out = tsw.sw_band_align_torch(*args, D, gf, ge)
+    return [x.numpy() for x in out + _gap_values(*args, D, gf, ge)]
+
+
+def _gap_values(q, s, d, e8, D, gf, ge):
+    """E and F of every cell, (N, D+1, B) int32 each, from the plain sweep
+    the codes come from: an extend bit is compared only where the gap
+    value it describes is positive."""
+    cols = [(E.T, F.T) for _, _, _, E, _, F, _ in tsw._band_sweep(
+        q, s, d, e8, D, gf, ge)]
+    return tuple(torch.stack(x) for x in zip(*cols))
 
 
 def _assert_codes_equal(port, want, d):
