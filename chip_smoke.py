@@ -6,30 +6,41 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   -- the card's name and power limit (nvidia-smi); no CUDA: exit 1
-2. build    -- build K1-K4 (nvcc, sm_90a, one nvcc per source) and the
-               host C++ helpers (g++) in parallel from the sources in the
-               checkout, with each kernel's ptxas report
+2. build    -- build K1-K4 and the rate probe (nvcc, sm_90a, one nvcc per
+               source) and the host C++ helpers (g++) in parallel from the
+               sources in the checkout, with each kernel's ptxas report
+   rates    -- the card's int32 instruction rates (csrc/int_rate.cu):
+               add, max, the two DPX forms and the band cell as 7
+               DPX-folded instructions; the per-cell time of the bounds
 3. k1       -- K1 against its plain PyTorch version on the card, exact
                equality, at D in {7, 39, 127, 1023} x query buckets
-               {64, 256, 1024} with BLOSUM62 ranks and padding rows, and at
-               the bench shape (B 24576, qlen 256, window 290, band 34);
+               {64, 256, 1024} with BLOSUM62 ranks and padding rows, at
+               D 2047 (two segments of band state), with X-drop (X 5,
+               checkpoints every 16 columns) per band bucket, and at the
+               bench shape (B 24576, qlen 256, window 290, band 34);
                kernel and plain ms (CUDA events, median), GCUPS, bound
+               (X-drop: the cells of the columns each row swept)
 4. k2       -- K2 (direction codes) against its plain version at the k1
-               cases: scores, end cells, H-source bits of every in-band
-               cell, extend bits wherever their gap value is positive, and
-               the walked traces
+               cases and D 2047: scores, end cells, H-source bits of every
+               in-band cell, extend bits wherever their gap value is
+               positive, and the walked traces
 5. k3       -- K3 (the sublane layout) against K1's plain version at the
                k1 cases and the bench shape
-6. k4       -- K4 (rectangle) against its plain version at M in {128, 512,
+6. grid     -- K1 and K3 timed side by side at B in {256, 512, 2048,
+               24576} x D in {23, 39, 127} (query bucket 128), both held
+               against the plain version; a record, it selects nothing
+7. k4       -- K4 (rectangle) against its plain version at M in {128, 512,
                2048} with windows up to 2 M, through the op's host entry
                point (its launches counted)
-7. golden   -- the port's CLI, mkindexp + searchp on the blastp fixtures,
+8. golden   -- the port's CLI, mkindexp + searchp on the blastp fixtures,
                byte-equal to tests/golden/blastp_m8.m8 and blastp_m9.m9;
                again with LAMBDA_SW_TRACE=device (K2) and with the sublane
                layout (K3)
-8. card_cpu -- a 2e5-residue database and 256 queries searched with
-               --device cuda and --device cpu: byte-equal m8
-9. scale    -- the main path: a 1e8-residue synthetic protein database
+9. card_cpu -- a 2e5-residue database and 256 queries searched with
+               --device cuda and --device cpu: byte-equal m8; then the
+               same in a child process under LAMBDA_SW_XDROP (latched at
+               import), K1 launched with X-drop, card m8 == CPU m8
+10. scale   -- the main path: a 1e8-residue synthetic protein database
                (250,000 x 400 aa), index resident on the card, 1,024
                queries (70 % homolog fragments, 30 % random) through
                mkindexp / searchp with default options; K1 launch count,
@@ -46,12 +57,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
                busy time
 
 then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
+Kernel ``ms`` is the call as issued (CUDA events around the wrapper's
+call, the measure of every record of this script); ``device_ms`` beside
+it is the device's work alone (the stream held busy by a spin while the
+call is enqueued), which leaves out the wrapper's host time.
+
+    python3 chip_smoke.py --warp-sweep
+
+times K1 and K2 (device ms) at every group width on a (B, D) grid: the
+measurements behind ops/sw_band.py:warp_config.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -73,7 +94,14 @@ INT32_LANES_PER_SM = 64            # Hopper white paper: 64 INT32 units/SM
 # produce the code and the end-cell key (7 adds, 5 maxes, 10 compares)
 OPS_PER_CELL = 11
 K2_OPS_PER_CELL = 22
+# ... or, with DPX, 7 instructions (csrc/int_rate.cu's header); the
+# bounds take whichever of the two the card runs faster
+DPX_CELL_INSTR = 7
 KERNELS = ("sw_band", "sw_band_dirs", "sw_band_sub", "sw_rect")
+# the rate probe's modes (csrc/int_rate.cu): name, instructions per thread
+# and iteration
+RATE_MODES = (("add", 8), ("max", 8), ("viaddmax", 8), ("viaddmax_relu", 8),
+              ("dpx_cell", 4 * DPX_CELL_INSTR))
 AA = "ARNDCQEGHILKMFPSTWYV"
 GYRA = (
     "MSDLAREITPVNIEEELKSSYLDYAMSVIVGRALPDVRDGLKPVHRRVLYAMNVLGNDWNKAYKKSARVVG"
@@ -111,7 +139,8 @@ def phase_device() -> dict:
          count=torch.cuda.device_count(), sms=props.multi_processor_count,
          max_sm_mhz=mhz, int32_ops_per_s=int32_rate,
          torch=torch.__version__, cuda=torch.version.cuda)
-    return dict(smi=line, int32_rate=int32_rate)
+    return dict(smi=line, int32_rate=int32_rate,
+                sms=props.multi_processor_count, mhz=mhz)
 
 
 def phase_build() -> None:
@@ -125,7 +154,7 @@ def phase_build() -> None:
 
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as ex:
         jobs = {name: ex.submit(timed, lambda n=name: _build.load(n))
-                for name in KERNELS}
+                for name in KERNELS + ("int_rate",)}
         host = ex.submit(timed, native.get_lib)
         nvcc_s = {name: round(job.result(), 2) for name, job in jobs.items()}
         host_s = host.result()
@@ -137,20 +166,83 @@ def phase_build() -> None:
          ptxas_by_kernel=ptxas)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` (after one warm-up call)."""
+# cycles of the spin that holds the stream busy before a device-time
+# measurement: about 1 ms at the H100's 1.98 GHz, more than the host
+# needs to enqueue one call of a kernel's wrapper
+SPIN_CYCLES = 2_000_000
+
+
+def time_ms(fn, reps: int, device: bool = False) -> float:
+    """Median CUDA-event time of ``fn`` (after one warm-up call).  By
+    default the events bracket the call as the host issues it, so a
+    kernel shorter than its wrapper's host time is timed at the host's
+    pace (the records' earlier kernel times).  ``device``: the stream is first
+    held busy by a spin, so the whole call is enqueued before the first
+    event fires and the events bracket the device's work alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """``ms``: the time of the call as issued (every record's measure);
+    ``device_ms``: the device's work alone."""
+    return dict(ms=time_ms(fn, reps),
+                device_ms=time_ms(fn, reps, device=True))
+
+
+def phase_rates(dev_info) -> None:
+    """The card's int32 instruction rates from csrc/int_rate.cu (lane
+    instructions per second over all SMs, and per SM and clock at the
+    maximum SM clock), and the per-cell times the bounds use: a cell of
+    K1-K4's function takes the least of 11 operations at the data sheet's
+    int32 rate and 7 DPX-folded instructions at the measured cell rate;
+    K2's code and end-cell key add 11 operations at the int32 rate
+    (compares and selects have no DPX form).  Sets dev_info's
+    ``cell_s`` and ``k2_cell_s``."""
+    from lambda_tpu_torch.ops import _build
+
+    fn = _build.load("int_rate").int_rate_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    blocks, threads, iters = dev_info["sms"] * 4, 256, 1 << 16
+    seeds = torch.tensor([-12, -1, 5, 3, 7, 1, 0, 2, -20, -30, -25, -40, 4,
+                          -2, 6, -1], dtype=torch.int32, device="cuda")
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    per_clock = dev_info["sms"] * dev_info["mhz"] * 1e6
+    rates, ms = {}, {}
+    for mode, (name, per_iter) in enumerate(RATE_MODES):
+        def launch(mode=mode):
+            err = fn(mode, blocks, threads, iters, seeds.data_ptr(),
+                     out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"int_rate mode {mode}: cudaError {err}")
+        ms[name] = time_ms(launch, 5)
+        rates[name] = blocks * threads * iters * per_iter / (ms[name] * 1e-3)
+    plain_cell_s = OPS_PER_CELL / dev_info["int32_rate"]
+    dpx_cell_s = DPX_CELL_INSTR / rates["dpx_cell"]
+    dev_info["cell_s"] = min(plain_cell_s, dpx_cell_s)
+    dev_info["k2_cell_s"] = dev_info["cell_s"] + (
+        K2_OPS_PER_CELL - OPS_PER_CELL) / dev_info["int32_rate"]
+    emit(phase="rates", blocks=blocks, threads=threads, iters=iters, ms=ms,
+         lane_instr_per_s=rates,
+         per_sm_per_clock={k: v / per_clock for k, v in rates.items()},
+         dpx_cells_per_s=rates["dpx_cell"] / DPX_CELL_INSTR,
+         plain_cell_ns=plain_cell_s * 1e9, dpx_cell_ns=dpx_cell_s * 1e9,
+         cell_ns=dev_info["cell_s"] * 1e9,
+         k2_cell_ns=dev_info["k2_cell_s"] * 1e9,
+         cell_by="dpx" if dpx_cell_s < plain_cell_s else "plain int32")
 
 
 def timed(fn):
@@ -166,62 +258,83 @@ def timed(fn):
     return out, a.elapsed_time(b)
 
 
-def k1_work(q, d_rows, pad: int, C: int):
+def k1_work(q, d_rows, pad: int, C: int, cols=None):
     """(needed in-band cells, rectangle cells, bytes moved) of one K1
-    call: a row of query length L and band d needs L * (d + 1) cells."""
+    call: a row of query length L and band d needs L * (d + 1) cells;
+    with ``cols`` (B,), the columns each row swept before X-drop latched
+    it dead, only the cells (i, j) with j < cols."""
     qlen = (q != pad).sum(dim=1).to(torch.int64)
     d = d_rows.to(torch.int64)
     live = d >= 0
-    cells = int((qlen * (d + 1))[live].sum())
+    if cols is None:
+        per_row = qlen * (d + 1)
+    else:
+        # query position i meets columns j in [i, i + d], cut at cols
+        i = torch.arange(q.shape[1], device=q.device)[None, :]
+        hi = torch.minimum(i + d[:, None], cols.to(torch.int64)[:, None] - 1)
+        per_row = ((hi - i + 1).clamp(min=0) * (i < qlen[:, None])).sum(1)
+    cells = int(per_row[live].sum())
     rect = int((qlen * (qlen + d))[live].sum())
     B, N = q.shape
     nbytes = 2 * B * N + 4 * B + 4 * B + C * C
     return cells, rect, nbytes
 
 
-def bound(ops: int, nbytes: int, dev_info) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the int32 rate and the bytes over the memory rate."""
-    t_ops = ops / dev_info["int32_rate"] * 1e3
+def bound(cells: int, nbytes: int, dev_info, codes: bool = False) -> dict:
+    """The least time the card could take: the larger of the needed cells
+    at the card's per-cell time (phase_rates; ``codes``: K2's) and the
+    bytes over the memory rate."""
+    t_ops = cells * dev_info["k2_cell_s" if codes else "cell_s"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def k1_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=5,
-               plain_reps=1, kernel="K1") -> dict:
+               plain_reps=1, kernel="K1", x_drop=0, nc=0) -> dict:
     """Kernel vs plain version on the same card tensors: exact equality,
     times, GCUPS and the bound.  ``kernel`` K1, or K3 (the sublane
-    layout's kernel, which computes the same function).  ``plain_reps``
-    0 times the plain version on its comparison call alone."""
+    layout's kernel, which computes the same function without X-drop).
+    ``plain_reps`` 0 times the plain version on its comparison call
+    alone.  With ``x_drop`` the bound counts the cells of the columns each
+    row swept, as the plain version records them."""
     from lambda_tpu_torch.ops import sw_band
 
     if kernel == "K1":
         def launch():
-            return sw_band.sw_band_score_device(q, s, d_rows, e8, D, gf, ge)
+            return sw_band.sw_band_score_device(q, s, d_rows, e8, D, gf, ge,
+                                                x_drop, nc)
         counter = "launches"
     else:
         def launch():
             return sw_band._sw_band_score_sub_cuda(q, s, d_rows, e8, D, gf,
                                                    ge)
         counter = "launches_sub"
+
     def plain():
-        return sw_band.sw_band_score_torch(q, s, d_rows, e8, D, gf, ge)
+        return sw_band.sw_band_score_torch(q, s, d_rows, e8, D, gf, ge,
+                                           x_drop, nc)
 
     saved = getattr(sw_band, counter)
     out_k = launch()
     out_p, p_ms = timed(plain)
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
-    k_ms = time_ms(launch, reps)
+    kt = kernel_times(launch, reps)
+    k_ms = kt["ms"]
     if plain_reps:                     # K1's phase: median of more runs
         p_ms = time_ms(plain, plain_reps)
     setattr(sw_band, counter, saved)   # comparison launches do not count
-    cells, rect, nbytes = k1_work(q, d_rows, e8.shape[0] - 1, e8.shape[0])
+    cols = None
+    if x_drop:
+        cols = sum(swept.to(torch.int64) for _, swept in sw_band._score_sweep(
+            q, s, d_rows, e8, D, gf, ge, x_drop, nc))
+    cells, rect, nbytes = k1_work(q, d_rows, e8.shape[0] - 1, e8.shape[0],
+                                  cols)
     return dict(B=int(q.shape[0]), N=int(q.shape[1]), D=D,
                 max_abs_err=err, exact_equal=err == 0,
                 max_score=int(out_k.max()) if len(out_k) else 0,
-                ms=k_ms, plain_ms=p_ms,
-                **bound(OPS_PER_CELL * cells, nbytes, dev_info),
+                **kt, plain_ms=p_ms,
+                **bound(cells, nbytes, dev_info),
                 inband_cells=cells,
                 rect_gcups=rect / (k_ms * 1e-3) / 1e9,
                 inband_gcups=cells / (k_ms * 1e-3) / 1e9)
@@ -249,8 +362,8 @@ def k2_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=3,
         E, F = gap_values(q, s, d_rows, e8, D, gf, ge)
         w = torch.arange(D + 1, device=q.device)
         d64 = d_rows.to(torch.int64)
-        in_band = ((w[None, :, None] >= (D - d64)[None, None, :])
-                   & (d64 >= 0)[None, None, :])
+        in_band = ((w[None, None, :] >= (D - d64)[:, None, None])
+                   & (d64 >= 0)[:, None, None])
         h_eq = bool((((dk ^ dp) & 3) == 0)[in_band.expand_as(dk)].all())
         e_eq = bool((((dk ^ dp) & 4) == 0)[in_band & (E > 0)].all())
         f_eq = bool((((dk ^ dp) & 8) == 0)[in_band & (F > 0)].all())
@@ -258,16 +371,17 @@ def k2_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=3,
     err = int((bk.to(torch.int64) - bp.to(torch.int64)).abs().max())
     ends_eq = torch.equal(jk, jp) and torch.equal(wk, wp)
     n = min(walk_rows, int(q.shape[0]))
-    wk_sc, wk_tr = sw_band.walk_rows(dk[:, :, :n], bk[:n], jk[:n], wk[:n], D)
-    wp_sc, wp_tr = sw_band.walk_rows(dp[:, :, :n], bp[:n], jp[:n], wp[:n], D)
+    wk_sc, wk_tr = sw_band.walk_rows(dk[:n], bk[:n], jk[:n], wk[:n], D)
+    wp_sc, wp_tr = sw_band.walk_rows(dp[:n], bp[:n], jp[:n], wp[:n], D)
     traces_eq = bool((wk_sc == wp_sc).all()) and wk_tr == wp_tr
     del dp
-    k_ms = time_ms(lambda: sw_band.sw_band_align_device(
+    kt = kernel_times(lambda: sw_band.sw_band_align_device(
         q, s, d_rows, e8, D, gf, ge), reps)
+    k_ms = kt["ms"]
     sw_band.launches_dirs = saved      # comparison launches do not count
     cells, _, in_bytes = k1_work(q, d_rows, e8.shape[0] - 1, e8.shape[0])
     B, N = q.shape
-    nbytes = in_bytes + B * N * (D + 1) + 8 * B   # dirs once, end cells
+    nbytes = in_bytes + B * N * (D + 1) + 8 * B   # band codes, end cells
     exact = err == 0 and ends_eq and h_eq and e_eq and f_eq and traces_eq
     return dict(B=int(B), N=int(N), D=D, max_abs_err=err,
                 exact_equal=exact, end_cells_equal=ends_eq,
@@ -277,20 +391,25 @@ def k2_compare(q, s, d_rows, e8, D, gf, ge, dev_info, reps=3,
                 traces_with_gaps=sum(1 for t in wk_tr
                                      if t is not None and len(t[2]) > 1),
                 max_score=int(bk.max()) if len(bk) else 0,
-                ms=k_ms, plain_ms=p_ms,
-                **bound(K2_OPS_PER_CELL * cells, nbytes, dev_info),
+                **kt, plain_ms=p_ms,
+                **bound(cells, nbytes, dev_info, codes=True),
                 inband_cells=cells,
                 inband_gcups=cells / (k_ms * 1e-3) / 1e9)
 
 
 def gap_values(q, s, d_rows, e8, D, gf, ge):
-    """E and F of every cell, (N, D+1, B) int32 each, from the plain sweep
-    K2's plain codes come from."""
+    """E and F of every cell in K2's dirs layout (B, N, D+1), int32 each,
+    from the plain sweep K2's plain codes come from."""
     from lambda_tpu_torch.ops import sw_band
 
-    cols = [(E.T, F.T) for _, _, _, E, _, F, _ in sw_band._band_sweep(
-        q, s, d_rows, e8, D, gf, ge)]
-    return tuple(torch.stack(x) for x in zip(*cols))
+    B, N = q.shape
+    out = [torch.empty((B, N, D + 1), dtype=torch.int32, device=q.device)
+           for _ in range(2)]
+    for j, (_, _, _, E, _, F, _) in enumerate(sw_band._band_sweep(
+            q, s, d_rows, e8, D, gf, ge)):
+        out[0][:, j] = E
+        out[1][:, j] = F
+    return out
 
 
 def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
@@ -306,7 +425,9 @@ def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
     if host_out is not None:
         err = max(err, int(np.abs(out_p.cpu().numpy().astype(np.int64)
                                   - host_out).max()))
-    k_ms = time_ms(lambda: sw_rect.sw_score_device(q, s, e8, gf, ge), reps)
+    kt = kernel_times(lambda: sw_rect.sw_score_device(q, s, e8, gf, ge),
+                      reps)
+    k_ms = kt["ms"]
     sw_rect.launches = saved           # comparison launches do not count
     pad = e8.shape[0] - 1
     qlen = (q != pad).sum(dim=1).to(torch.int64)
@@ -317,8 +438,8 @@ def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
     nbytes = B * M + B * N + 4 * B + e8.numel()
     return dict(B=int(B), M=int(M), N=int(N), max_abs_err=err,
                 exact_equal=err == 0, max_score=int(out_k.max()),
-                ms=k_ms, plain_ms=p_ms,
-                **bound(OPS_PER_CELL * cells, nbytes, dev_info),
+                **kt, plain_ms=p_ms,
+                **bound(cells, nbytes, dev_info),
                 cells=cells, gcups=cells / (k_ms * 1e-3) / 1e9)
 
 
@@ -357,6 +478,8 @@ def k1_inputs(rng, B, qbk, D, C, homolog=0.5, pad_rows=0.05):
 
 
 def phase_k1(dev_info) -> dict:
+    from lambda_tpu_torch.ops import sw_band
+
     rng = np.random.default_rng(7)
     e8_np, gf, ge = blosum_e8()
     dev = torch.device("cuda")
@@ -389,7 +512,37 @@ def phase_k1(dev_info) -> dict:
     if not bench["exact_equal"]:
         raise SystemExit("K1 disagrees with its plain version at the bench "
                          "shape")
-    return dict(bench=bench, worst=max(worst, bench["max_abs_err"]))
+    worst = max(worst, bench["max_abs_err"])
+    # D 2047: the band state in two segments of global scratch
+    rng = np.random.default_rng(31)
+    wide = k1_compare(*(torch.as_tensor(x, device=dev)
+                        for x in k1_inputs(rng, 64, 256, 2047, C)),
+                      e8, 2047, gf, ge, dev_info, reps=3)
+    emit(phase="k1", case="D2047_q256", **wide)
+    if not wide["exact_equal"]:
+        raise SystemExit("K1 disagrees with its plain version at D 2047")
+    worst = max(worst, wide["max_abs_err"])
+    # X-drop per band bucket: X 5, checkpoints every 16 columns
+    for D in (7, 39, 127, 1023):
+        qbk = 256
+        B = int(min(4096, max(64, (1 << 27) // ((qbk + D) * (D + 1)))))
+        args = [torch.as_tensor(x, device=dev)
+                for x in k1_inputs(rng, B, qbk, D, C)]
+        r = k1_compare(*args, e8, D, gf, ge, dev_info, reps=3, x_drop=5,
+                       nc=16)
+        # the kernel's X-drop scores (equal to the plain version's, above)
+        # against the exact ones
+        changed = int((sw_band.sw_band_score_device(*args, e8, D, gf, ge, 5,
+                                                    16)
+                       != sw_band.sw_band_score_device(*args, e8, D, gf, ge))
+                      .sum())
+        worst = max(worst, r["max_abs_err"])
+        emit(phase="k1", case=f"D{D}_q{qbk}_xdrop5_nc16",
+             rows_changed_by_xdrop=changed, **r)
+        if not r["exact_equal"] or changed == 0:
+            raise SystemExit(f"K1 with X-drop disagrees with its plain "
+                             f"version (or X-drop changed nothing) at D {D}")
+    return dict(bench=bench, worst=worst)
 
 
 def band_cases(seed: int, C: int):
@@ -416,7 +569,46 @@ def phase_k2(dev_info) -> dict:
         if not r["exact_equal"]:
             raise SystemExit(f"K2 disagrees with its plain version at D {D}, "
                              f"qlen bucket {qbk}")
+    rng = np.random.default_rng(37)
+    q, s, d = (torch.as_tensor(x, device="cuda")
+               for x in k1_inputs(rng, 64, 256, 2047, e8_np.shape[0]))
+    r = k2_compare(q, s, d, e8, 2047, gf, ge, dev_info, walk_rows=64)
+    worst = max(worst, r["max_abs_err"])
+    emit(phase="k2", case="D2047_q256", **r)
+    if not r["exact_equal"]:
+        raise SystemExit("K2 disagrees with its plain version at D 2047")
     return dict(worst=worst)
+
+
+def phase_grid(dev_info) -> list:
+    """K1 and K3 side by side on a (B, D) grid at query bucket 128, each
+    held against the plain version; recorded for choosing between them
+    by shape, used for nothing here."""
+    rng = np.random.default_rng(41)
+    e8_np, gf, ge = blosum_e8()
+    e8 = torch.as_tensor(e8_np, device="cuda")
+    rows = []
+    for D in (23, 39, 127):
+        for B in (256, 512, 2048, 24576):
+            args = [torch.as_tensor(x, device="cuda")
+                    for x in k1_inputs(rng, B, 128, D, e8_np.shape[0])]
+            r1 = k1_compare(*args, e8, D, gf, ge, dev_info, reps=5,
+                            plain_reps=0)
+            r3 = k1_compare(*args, e8, D, gf, ge, dev_info, reps=5,
+                            plain_reps=0, kernel="K3")
+            row = dict(B=B, D=D, N=128 + D, k1_ms=r1["ms"], k3_ms=r3["ms"],
+                       k1_device_ms=r1["device_ms"],
+                       k3_device_ms=r3["device_ms"],
+                       bound_ms=r1["bound_ms"],
+                       k3_over_k1=r3["ms"] / r1["ms"],
+                       k3_over_k1_device=r3["device_ms"] / r1["device_ms"],
+                       exact_equal=r1["exact_equal"] and r3["exact_equal"])
+            rows.append(row)
+            emit(phase="grid", **row)
+            if not row["exact_equal"]:
+                raise SystemExit(f"K1 or K3 disagrees with the plain version "
+                                 f"at B {B}, D {D}")
+    return rows
 
 
 def phase_k3(dev_info) -> dict:
@@ -468,6 +660,52 @@ def k4_inputs(rng, B: int, M: int, C: int):
             mut = rng.integers(0, L, L // 8)
             s[b, off + mut] = rng.integers(0, 20, len(mut))
     return q, s
+
+
+def warp_sweep() -> None:
+    """``--warp-sweep``: K1 and K2 device times at every group width G on
+    a (B, D) grid (query bucket 128; at B 530, D 23 also 256, for the
+    cost of a column), the measurements ops/sw_band.py:warp_config's rule
+    was fitted to; each line marks the rule's own choice."""
+    from lambda_tpu_torch.ops import sw_band
+
+    rng = np.random.default_rng(5)
+    e8_np, gf, ge = blosum_e8()
+    e8 = torch.as_tensor(e8_np, device="cuda")
+    C = e8_np.shape[0]
+    rule = sw_band.warp_config
+    grid = [(B, D, 128) for D in (7, 23, 39, 127, 255, 1023)
+            for B in (64, 256, 530, 2048, 8192, 24576)
+            if D < 255 or B <= 8192] + [(530, 23, 256)]
+    try:
+        for B, D, qbk in grid:
+            N = qbk + D
+            q = rng.integers(0, 20, (B, N)).astype(np.int8)
+            q[:, qbk:] = C - 1
+            s = rng.integers(0, 20, (B, N)).astype(np.int8)
+            args = [torch.as_tensor(x, device="cuda")
+                    for x in (q, s, np.full(B, D, np.int32))]
+            row = dict(B=B, D=D, N=N, k1_rule=rule(B, D)[:2],
+                       k2_rule=rule(B, D, dirs=True)[:2])
+            for G in (4, 8, 16, 32):
+                need = -(-(D + 1) // G)
+                if need > 32:
+                    continue
+                for name, dirs, rs in (("k1", False, sw_band.R_SCORE),
+                                       ("k2", True, sw_band.R_DIRS)):
+                    R = next(r for r in rs if r >= need)
+                    if dirs and B * N * G * R > 3e9:   # dirs bytes
+                        continue
+                    sw_band.warp_config = (lambda B_, D_, dirs=False, G=G,
+                                           R=R: (G, R, 1))
+                    fn = (sw_band.sw_band_align_device if dirs
+                          else sw_band.sw_band_score_device)
+                    row[f"{name}_G{G}_R{R}_device_ms"] = time_ms(
+                        lambda: fn(*args, e8, D, gf, ge), 5, device=True)
+                    sw_band.warp_config = rule
+            emit(phase="warp_sweep", **row)
+    finally:
+        sw_band.warp_config = rule
 
 
 def phase_k4(dev_info) -> dict:
@@ -622,27 +860,60 @@ def query_mix(rng, db, n_q: int):
     return recs
 
 
-def phase_card_cpu(tmp: Path) -> None:
-    rng = np.random.default_rng(11)
-    db = synthetic_db(rng, 500, 400)
-    write_fasta(tmp / "small.fasta",
-                [(f"s{i}", r.tobytes().decode()) for i, r in enumerate(db)])
-    write_fasta(tmp / "small_q.fasta", query_mix(rng, db, 256))
+# X of the card_cpu phase's X-drop run
+CARD_CPU_XDROP = 10
+
+
+def phase_card_cpu(tmp: Path, tag: str = "") -> None:
+    """The same queries with --device cuda and --device cpu: byte-equal
+    m8.  ``tag`` "xdrop": the run of the child process under
+    LAMBDA_SW_XDROP (the database and queries of the first run), which
+    also reports K1's launches and whether X-drop changed the m8."""
+    from lambda_tpu_torch.ops import sw_band
+
     lit = tmp / "small.lit"
-    run_cli("mkindexp", "-d", tmp / "small.fasta", "-i", lit, "-v", "0")
-    outs, secs = {}, {}
+    if not tag:
+        rng = np.random.default_rng(11)
+        db = synthetic_db(rng, 500, 400)
+        write_fasta(tmp / "small.fasta",
+                    [(f"s{i}", r.tobytes().decode())
+                     for i, r in enumerate(db)])
+        write_fasta(tmp / "small_q.fasta", query_mix(rng, db, 256))
+        run_cli("mkindexp", "-d", tmp / "small.fasta", "-i", lit, "-v", "0")
+    outs, secs, k1_launches = {}, {}, None
     for dev in ("cuda", "cpu"):
-        out = tmp / f"small_{dev}.m8"
+        out = tmp / f"small_{dev}{tag}.m8"
+        reset_band_launches()
         t0 = time.perf_counter()
         run_cli("searchp", "-q", tmp / "small_q.fasta", "-i", lit, "-o", out,
                 "-v", "0", "--device", dev)
         secs[dev] = round(time.perf_counter() - t0, 3)
         outs[dev] = out.read_bytes()
+        if dev == "cuda":
+            k1_launches = sw_band.launches
     same = outs["cuda"] == outs["cpu"]
-    emit(phase="card_cpu", db_residues=200000, queries=256, m8_equal=same,
-         m8_lines=outs["cuda"].count(b"\n"), seconds=secs)
+    extra = {}
+    if tag:
+        extra = dict(x_drop=sw_band._XDROP, k1_launches=k1_launches,
+                     m8_differs_from_exact=outs["cuda"]
+                     != (tmp / "small_cuda.m8").read_bytes())
+    emit(phase="card_cpu" + (f"_{tag}" if tag else ""), db_residues=200000,
+         queries=256, m8_equal=same, m8_lines=outs["cuda"].count(b"\n"),
+         seconds=secs, **extra)
     if not same or not outs["cuda"]:
-        raise SystemExit("card and CPU m8 differ (or are empty)")
+        raise SystemExit(f"card and CPU m8 differ (or are empty) {tag}")
+    if tag and (sw_band._XDROP <= 0 or not k1_launches):
+        raise SystemExit("the X-drop run did not launch K1 with X-drop")
+
+
+def phase_card_cpu_xdrop(tmp: Path) -> None:
+    """phase_card_cpu again in a child process with LAMBDA_SW_XDROP set:
+    ops/sw_band.py latches the variable when it is imported."""
+    env = dict(os.environ, LAMBDA_SW_XDROP=str(CARD_CPU_XDROP))
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--card-cpu-xdrop", str(tmp)], env=env)
+    if r.returncode != 0:
+        raise SystemExit(f"the card_cpu X-drop run exited {r.returncode}")
 
 
 def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
@@ -677,11 +948,11 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
         rec["ready"] = time.perf_counter()
         rec["ctx"] = self
 
-    def k1_hook(q, s, d_rows, subst8, D, gf, ge):
+    def k1_hook(*a):
         if len(rec["k1_inputs"]) < 3:
-            rec["k1_inputs"].append((q.clone(), s.clone(), d_rows.clone(),
-                                     subst8.clone(), D, gf, ge))
-        return k1(q, s, d_rows, subst8, D, gf, ge)
+            rec["k1_inputs"].append(tuple(x.clone() if torch.is_tensor(x)
+                                          else x for x in a))
+        return k1(*a)
 
     pipeline.SearchContext.__init__ = init_hook
     sw_band._sw_band_score_cuda = k1_hook
@@ -709,7 +980,7 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
                 if qid.startswith("hom") and qid.split("_s")[1] in
                 {s[1:] for s in subs})
     share = found / n_hom
-    cmp = [k1_compare(*x[:4], x[4], x[5], x[6], dev_info, reps=3)
+    cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
            for x in rec["k1_inputs"]]
     want_m8 = (tmp / "big.m8").read_bytes()
     search_s = t1 - rec["ready"]
@@ -755,7 +1026,8 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
          profiled_pass=prof,
          k1_main_path_compare=[{k: c[k] for k in
                                 ("B", "N", "D", "exact_equal", "ms",
-                                 "plain_ms", "bound_ms")} for c in cmp])
+                                 "device_ms", "plain_ms", "bound_ms")}
+                               for c in cmp])
     if launches <= 0:
         raise SystemExit("the main path launched K1 no time")
     if share < 0.5:
@@ -828,7 +1100,8 @@ def rerun_search(ctx, tmp: Path, mode: str, want_m8: bytes, dev_info,
          k3_launches=n["launches_sub"],
          main_path_compare=[{k: c[k] for k in
                              ("B", "N", "D", "exact_equal", "ms",
-                              "plain_ms", "bound_ms", "bound_by")}
+                              "device_ms", "plain_ms", "bound_ms",
+                              "bound_by")}
                             for c in cmp])
     if not same:
         raise SystemExit(f"the {mode} run's m8 differs from the default "
@@ -878,14 +1151,15 @@ def profile_search(ctx, opt) -> dict:
 def kernel_entry(name, source, replaces, launches, worst, cmp,
                  **extra) -> dict:
     """One entry of the kernels line: main-path launches, and the sums
-    over the timed main-path launches (or op calls) of kernel, plain and
-    bound times."""
+    over the timed main-path launches (or op calls) of kernel (the call
+    as issued, and the device's work alone), plain and bound times."""
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
         max_abs_err=max([worst] + [c["max_abs_err"] for c in cmp]),
         exact_equal=all(c["exact_equal"] for c in cmp),
         ms=sum(c["ms"] for c in cmp),
+        device_ms=sum(c["device_ms"] for c in cmp),
         plain_ms=sum(c["plain_ms"] for c in cmp),
         bound_ms=sum(c["bound_ms"] for c in cmp),
         bound_by=("operations" if all(c["bound_by"] == "operations"
@@ -894,22 +1168,34 @@ def kernel_entry(name, source, replaces, launches, worst, cmp,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--warp-sweep"]:
+        phase_device()
+        warp_sweep()
+        return 0
+    if sys.argv[1:2] == ["--card-cpu-xdrop"]:       # phase_card_cpu_xdrop
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+        phase_card_cpu(Path(sys.argv[2]), tag="xdrop")
+        return 0
     dev_info = phase_device()
     phase_build()
+    phase_rates(dev_info)
     k1 = phase_k1(dev_info)
     k2 = phase_k2(dev_info)
     k3 = phase_k3(dev_info)
+    phase_grid(dev_info)
     k4 = phase_k4(dev_info)
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
         tmp = Path(d)
         phase_golden(tmp)
         phase_card_cpu(tmp)
+        phase_card_cpu_xdrop(tmp)
         scale = phase_scale(tmp, dev_info)
     reruns = scale["reruns"]
 
     def bench(r):
-        return {k: r[k] for k in ("B", "N", "D", "ms", "plain_ms",
+        return {k: r[k] for k in ("B", "N", "D", "ms", "device_ms", "plain_ms",
                                   "bound_ms", "rect_gcups", "inband_gcups")}
 
     print(smi("name,power.limit"), flush=True)

@@ -9,7 +9,7 @@
 // looks the scores up in a shared-memory matrix.
 //
 // What it computes: K1's banded DP without X-drop (band offsets
-// w = i - j + D, in-band lanes w in [D - d_row, D], off-band cells dead,
+// w = i - j + D, in-band offsets w in [D - d_row, D], off-band cells dead,
 // rows with d_row < 0 are batch padding), plus, per cell, the uint8 code
 // of the sw_xla encoding that the host walk (ops/sw_band.traceback_banded)
 // reads:
@@ -18,155 +18,105 @@
 //   bit 2 (4) E extends: E[w+1] + ge >= H[w+1] + gf of the previous column
 //             (never at w = D, whose up values are E = -inf, H = 0);
 //   bit 3 (8) F extends: F[w-1] + ge >= H[w-1] + gf with the final H of the
-//             offset below (never at the lowest offset).
-// Off-band cells get code 0.  Per row it also returns the best score and
-// the end cell (j, w) the walk starts from: maximum H, then smallest i+j,
-// then smallest i -- the JAX rule of traceback_banded (per-lane first
-// column at the maximum, then the smallest (i+j, i)), which a running key
-// reproduces because a lane's first column at its maximum has its
-// smallest i+j.
+//             offset below (never at the lowest in-band offset).
+// Off-band cells and the padding below the band get code 0.  Per row it
+// also returns the best score and the end cell (j, w) the walk starts
+// from: maximum H, then smallest i+j, then smallest i -- the JAX rule of
+// traceback_banded, which a running key 2j + w per lane, ties to the later
+// column, and a reduction over the group under the same order reproduce.
 //
-// Layout: one thread per alignment, the in-place column sweep of K1 (H and
-// E columns in dynamic shared memory, [w][thread], or in a global scratch
-// buffer [w][b] when they do not fit).  The codes are written as
-// dirs[j][w][b] (shape (N, D+1, B)), so the 32 threads of a warp store 32
-// consecutive bytes for each cell.
+// Design: K1's warp sweep (csrc/band_warp.cuh), G lanes per alignment,
+// R offsets per lane in registers, DPX add-max steps, no block barrier.
+// Each lane derives its R codes in the sweep's second pass; the F-extend
+// bit of a run's first offset reads F and final H of the offset below
+// through __shfl_up_sync.  dirs has the layout (B, N, Wp), Wp = G*R*S,
+// offset w of column j at dirs[b][j][w + Wp - 1 - D], so a group writes
+// each column as one contiguous run of Wp bytes and each lane its R codes
+// packed into 32-bit words (R a multiple of 4; 16- and 8-byte stores where
+// R allows, 2- and 1-byte stores for R = 2, 1).  The wrapper hands on the
+// view of the band's D + 1 offsets, the plain version's (B, N, D+1).
 //
 // Bound: integer operations at most shapes, bytes at some.  Each needed
-// cell costs about 22 int32 operations (K1's 11, the code and the
-// end-cell key), and the codes are written once, B * N * (D+1) bytes; at
-// 3.35 TB/s a byte costs as much as 5 operations at the int32 rate, so the
-// store stream sets the bound only where the band's cells outnumber the
-// needed ones about fourfold (wide bands over short queries).  This first
-// version does nothing about either beyond coalescing the byte stores
-// across the warp; packing four codes into one 32-bit store and spreading
-// the band over threads (K3's design) are later work.
+// cell costs K1's cell (7 instructions with DPX, csrc/int_rate.cu) and
+// about 11 int32 operations more for the code and the end-cell key, which
+// have no DPX form; the codes are written once, B * N * (D+1) bytes, and
+// at 3.35 TB/s a byte costs as much as 5 operations at the int32 rate, so
+// the store stream sets the bound where the band's cells outnumber the
+// needed ones about fourfold (wide bands over short queries); packing
+// each lane's codes into whole words keeps that stream coalesced.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band_warp.cuh"
 
-#define NEG32 (-(1 << 27))
-
-__global__ void sw_band_dirs_kernel(
-    const int8_t* __restrict__ q, const int8_t* __restrict__ s,
-    const int32_t* __restrict__ d_rows, const int8_t* __restrict__ subst8,
-    int B, int N, int D, int C, int gap_first, int gap_extend,
-    int32_t* __restrict__ scratch, uint8_t* __restrict__ dirs,
-    int32_t* __restrict__ best_out, int32_t* __restrict__ end_j,
-    int32_t* __restrict__ end_w)
+template <int R, bool MULTI>
+__global__ void __launch_bounds__(BW_THREADS)
+sw_band_dirs_kernel(BandProblem P)
 {
-    extern __shared__ int32_t smem[];
-    int32_t* sub = smem;
-    const int tid = threadIdx.x;
-    for (int i = tid; i < C * C; i += blockDim.x) sub[i] = subst8[i];
-    __syncthreads();
-
-    const int b = blockIdx.x * blockDim.x + tid;
-    if (b >= B) return;
-    const int d = d_rows[b];
-    const int Ws = D + 1;
-    const size_t col_stride = (size_t)Ws * B;     // dirs: one column j
-    uint8_t* drow = dirs + b;
-    if (d < 0) {
-        for (int j = 0; j < N; ++j)
-            for (int w = 0; w <= D; ++w)
-                drow[j * col_stride + (size_t)w * B] = 0;
-        best_out[b] = 0;
-        end_j[b] = -1;
-        end_w[b] = -1;
-        return;
+    extern __shared__ int4 smem[];
+    bw_load_matrix(P, smem);
+    const int G = MULTI ? 32 : P.G;
+    const int gid = threadIdx.x / G, gl = threadIdx.x & (G - 1);
+    const int b = blockIdx.x * (BW_THREADS / G) + gid;
+    // rows past B and padding rows sweep along, converged with the warp
+    const bool active = b < P.B && P.d_rows[b] >= 0;
+    if (b < P.B && !active) {                  // batch padding: all zero
+        const size_t words = (size_t)P.N * G * R * P.S / 4;
+        uint32_t* drow = (uint32_t*)(P.dirs + (size_t)b * P.N * G * R * P.S);
+        for (size_t k = gl; k < words; k += G) drow[k] = 0;
     }
-    int32_t* H;
-    int32_t* E;
-    size_t stride;
-    if (scratch == nullptr) {
-        H = smem + C * C + tid;
-        E = H + (size_t)Ws * blockDim.x;
-        stride = blockDim.x;
-    } else {
-        H = scratch + b;
-        E = H + (size_t)Ws * B;
-        stride = B;
+    BwEnd end{0, 0x7fffffff, -1, -1};
+    if (__any_sync(0xffffffffu, active))
+        bw_sweep<R, true, MULTI>(P, active ? b : 0, active, gid, gl, end);
+    if (gl == 0 && b < P.B) {
+        P.best[b] = active ? end.best : 0;
+        P.end_j[b] = active ? end.j : -1;
+        P.end_w[b] = active ? end.w : -1;
     }
-    const int wmin = d > D ? 0 : D - d;
-    for (int w = wmin; w <= D; ++w) {
-        H[w * stride] = 0;
-        E[w * stride] = NEG32;
-    }
-
-    const int8_t* qrow = q + (size_t)b * N;
-    const int8_t* srow = s + (size_t)b * N;
-    const int pad = C - 1;
-    const int gf = gap_first, ge = gap_extend;
-    int best = 0, bj = -1, bw = -1;
-    int bkey = 0x7fffffff;                          // 2j + w of the best cell
-    for (int j = 0; j < N; ++j) {
-        uint8_t* dcol = drow + j * col_stride;
-        for (int w = 0; w < wmin; ++w) dcol[(size_t)w * B] = 0;
-        const int32_t* scol = sub + srow[j];
-        int f = NEG32;             // F[w - 1]
-        int fsrc = NEG32;          // Htmp[w - 1] (off band below wmin)
-        int hn_prev = 0;           // final H[w - 1]
-        int h_diag = H[wmin * stride];
-        for (int w = wmin; w <= D; ++w) {
-            int h_up = 0, e_up = NEG32;      // w = D pulls from off band
-            if (w < D) {
-                h_up = H[(w + 1) * stride];
-                e_up = E[(w + 1) * stride];
-            }
-            const int ea = e_up + ge, eb = h_up + gf;
-            const int e = max(ea, eb);
-            const int i = j + w - D;
-            const int qr = (i >= 0 && i < N) ? (int)qrow[i] : pad;
-            const int diag = h_diag + scol[qr * C];
-            const int htmp = max(max(diag, e), 0);
-            const bool f_ext = f + ge >= hn_prev + gf;   // F[w-1], H[w-1]
-            f = max(f + ge, fsrc + gf);
-            const int h = max(htmp, f);
-            int code = 0;
-            if (h > 0) code = h == diag ? 1 : (h == e ? 2 : 3);
-            if (ea >= eb) code |= 4;
-            if (f_ext && w > wmin) code |= 8;
-            dcol[(size_t)w * B] = (uint8_t)code;
-            fsrc = htmp;
-            hn_prev = h;
-            H[w * stride] = h;
-            E[w * stride] = e;
-            const int key = 2 * j + w;
-            if (h > 0 && (h > best || (h == best && key <= bkey))) {
-                best = h;
-                bkey = key;
-                bj = j;
-                bw = w;
-            }
-            h_diag = h_up;
-        }
-    }
-    best_out[b] = best;
-    end_j[b] = bj;
-    end_w[b] = bw;
 }
 
-// Plain C entry point (loaded with ctypes).  Launches on `stream` and
-// returns cudaGetLastError() of the launch.
-extern "C" int sw_band_dirs_launch(
-    const int8_t* q, const int8_t* s, const int32_t* d_rows,
-    const int8_t* subst8, int B, int N, int D, int C, int gap_first,
-    int gap_extend, int32_t* scratch, int threads, long long smem_bytes,
-    uint8_t* dirs, int32_t* best, int32_t* end_j, int32_t* end_w,
-    void* stream)
+
+template <int R, bool MULTI>
+static int launch(const BandProblem& P, long long smem_bytes,
+                  cudaStream_t stream)
 {
-    if (B <= 0) return 0;
     if (smem_bytes > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
-            sw_band_dirs_kernel,
+            sw_band_dirs_kernel<R, MULTI>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
         if (err != cudaSuccess) return (int)err;
     }
-    const int blocks = (B + threads - 1) / threads;
-    sw_band_dirs_kernel<<<blocks, threads, (size_t)smem_bytes,
-                          (cudaStream_t)stream>>>(
-        q, s, d_rows, subst8, B, N, D, C, gap_first, gap_extend, scratch,
-        dirs, best, end_j, end_w);
+    const int per_block = BW_THREADS / (MULTI ? 32 : P.G);
+    const int blocks = (P.B + per_block - 1) / per_block;
+    sw_band_dirs_kernel<R, MULTI><<<blocks, BW_THREADS, (size_t)smem_bytes,
+                                    stream>>>(P);
     return (int)cudaGetLastError();
+}
+
+// Plain C entry point (loaded with ctypes).  G, R (one of
+// ops/sw_band.py:R_DIRS) and S as for K1; dirs is (B, N, G*R*S).
+// Launches on `stream` and returns cudaGetLastError() of the launch (-1
+// for an R that was not compiled).
+extern "C" int sw_band_dirs_launch(
+    const int8_t* q, const int8_t* s, const int32_t* d_rows,
+    const int8_t* subst8, int B, int N, int D, int C, int gap_first,
+    int gap_extend, int G, int R, int S, int32_t* scratch,
+    long long smem_bytes, uint8_t* dirs, int32_t* best, int32_t* end_j,
+    int32_t* end_w, void* stream)
+{
+    if (B <= 0) return 0;
+    BandProblem P{q, s, d_rows, subst8, B, N, D, C, gap_first, gap_extend,
+                  G, S, 0, 0, scratch, nullptr, dirs, best, end_j, end_w};
+    cudaStream_t st = (cudaStream_t)stream;
+    if (S > 1) return launch<32, true>(P, smem_bytes, st);
+    switch (R) {
+    case 1: return launch<1, false>(P, smem_bytes, st);
+    case 2: return launch<2, false>(P, smem_bytes, st);
+    case 4: return launch<4, false>(P, smem_bytes, st);
+    case 8: return launch<8, false>(P, smem_bytes, st);
+    case 12: return launch<12, false>(P, smem_bytes, st);
+    case 16: return launch<16, false>(P, smem_bytes, st);
+    case 20: return launch<20, false>(P, smem_bytes, st);
+    case 24: return launch<24, false>(P, smem_bytes, st);
+    case 32: return launch<32, false>(P, smem_bytes, st);
+    default: return -1;
+    }
 }

@@ -5,7 +5,7 @@
 // _make_band_kernel (launched by _score_band_padded), together with its
 // feeder _band_image_sub.  That kernel is K1's twin with the band offset on
 // the TPU's sublane (parallel) axis; this is the card's form of the same
-// idea, not a copy of K1 (csrc/sw_band.cu, one thread per alignment).
+// idea, not a copy of K1 (csrc/sw_band.cu).
 //
 // What it computes: exactly K1's function without X-drop -- for every
 // alignment b the best local score over the cells whose band offset

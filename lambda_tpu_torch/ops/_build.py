@@ -42,6 +42,14 @@ def _nvcc() -> str:
                        "first use and need the CUDA toolkit")
 
 
+def build_key(name: str) -> str:
+    """The build's key: a hash of ``csrc/<name>.cu``, the shared headers
+    (``csrc/*.cuh``) and the compiler flags."""
+    text = (_CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
@@ -50,11 +58,7 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = _CSRC / f"{name}.cu"
-        # the key covers the shared headers too (csrc/*.cuh)
-        text = src.read_bytes() + b"".join(
-            h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-        tag = hashlib.sha256(text
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        tag = build_key(name)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}-{tag}.so"
         if not so.exists():

@@ -5,14 +5,27 @@ kernels; each source's header gives the design and what bounds it:
 
 * K1 (``_make_band_kernel_lane``, pass 1, the default 'lane' layout) ->
   ``csrc/sw_band.cu``, plain version :func:`sw_band_score_torch`.
-* K3 (``_make_band_kernel``, pass 1 in the 'sublane' layout, chosen by
-  ``LAMBDA_SWB_LAYOUT=sublane``, latched when the module is imported as
-  in JAX) -> ``csrc/sw_band_sub.cu``.  K3 computes K1's function (band
-  offsets spread over the threads instead of one thread per alignment),
-  so its plain version is :func:`sw_band_score_torch` too.
 * K2 (``_make_band_dirs_kernel``, pass 2 under ``LAMBDA_SW_TRACE=device``)
   -> ``csrc/sw_band_dirs.cu``, plain version :func:`sw_band_align_torch`;
   the host walk :func:`traceback_banded` reads its direction codes.
+* K3 (``_make_band_kernel``, pass 1 in the 'sublane' layout, chosen by
+  ``LAMBDA_SWB_LAYOUT=sublane``, latched when the module is imported as
+  in JAX) -> ``csrc/sw_band_sub.cu``.  K3 computes K1's function without
+  X-drop, so its plain version is :func:`sw_band_score_torch` too.
+
+K1 and K2 share one core, ``csrc/band_warp.cuh``: a group of G lanes of
+one warp sweeps an alignment's band, each lane a run of R consecutive
+band offsets held in registers, with no block barrier; the wrapper picks
+(G, R) from (B, D) with :func:`warp_config`.
+
+X-drop (``LAMBDA_SW_XDROP``, latched at import as in JAX): pass 1 scores
+with the lane kernel's chunk-granular early exit -- after every ``nc``
+window columns a row whose max(H, E, 0) over the band has fallen more
+than X below its best (best > 0) is latched dead and its later columns
+contribute nothing.  ``nc`` must be the JAX package's column chunk
+(:func:`plan_nc`, a copy of ``_plan``'s formula), or the checkpoints fall
+on other columns and the scores differ.  Pass 2 (K2) stays exact, and the
+sublane layout refuses X-drop, as in the JAX package.
 
 Window convention (unchanged): the caller builds a *virtual* subject
 window such that the band is exactly ``d = j - i in [0, d_row]`` (query
@@ -25,11 +38,10 @@ substitution scores would let pure gap corridors cross the band.
 
 ``sw_band_score_device`` and ``sw_band_align_device`` launch a kernel for
 CUDA tensors and run the plain PyTorch version for CPU tensors; there is
-no fallback from one to the other.  The TPU kernels' tile plans
-(``_plan``/``_lane_geometry``/``trace_tile``: batch tiles of BT*P rows,
-windows padded to the column chunk) and ``_pad_host_inputs`` have no
-counterpart here: the CUDA kernels take any batch and window size, and
-PAD columns or padding rows cannot change a score or a trace.
+no fallback from one to the other.  Of the TPU kernels' tile plans only
+the column chunk survives (:func:`plan_nc`, for X-drop); the CUDA kernels
+take any batch and window size, and PAD columns or padding rows cannot
+change a score or a trace.
 """
 
 from __future__ import annotations
@@ -48,6 +60,12 @@ _SMEM_MAX = 227 * 1024
 # pass-1 layout, latched at import like lambda_tpu/ops/sw_band.py:66:
 # 'lane' launches K1, 'sublane' launches K3
 _LAYOUT = os.environ.get("LAMBDA_SWB_LAYOUT", "lane")
+# the lane plan's batch-tile cap (lambda_tpu/ops/sw_band.py:67): it sets
+# the column chunk, and with it the X-drop checkpoints
+_BT_CAP = int(os.environ.get("LAMBDA_SWB_BT", "512"))
+# pass-1 X-drop, latched at import like lambda_tpu/ops/sw_band.py:72
+# (0: exact band semantics)
+_XDROP = int(os.environ.get("LAMBDA_SW_XDROP", "0"))
 
 # kernel launches since the last reset, one counter per kernel
 # (chip_smoke reads them around the main path): K1, K2 and K3
@@ -77,6 +95,36 @@ def ext8_from_ext32(ext32: np.ndarray) -> np.ndarray:
     """Convert an extend_matrix (int32, PAD row included) to int8."""
     a = ext32.shape[0] - 1
     return extend_matrix8(np.asarray(ext32)[:a, :a])
+
+
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _lane_geometry(D: int):
+    """Copy of lambda_tpu/ops/sw_band.py:_lane_geometry: per-alignment
+    band width Ws = D+1 padded to 8, P alignments per 128-lane register,
+    LW lanes, BT batch sublanes per tile."""
+    Ws = _ceil(D + 1, 8)
+    P = max(1, 128 // Ws)
+    LW = max(_ceil(Ws, 128), 128)
+    BT = max(8, min(_BT_CAP, (1 << 21) // (LW * 4)))  # ~2 MB state x3
+    BT = (BT // 8) * 8
+    return Ws, P, LW, BT
+
+
+def plan_nc(Ns: int, D: int) -> int:
+    """The column chunk NC of the JAX lane plan for a (window Ns, band D)
+    class: ``lambda_tpu/ops/sw_band.py:_plan(Ns, D)[3]`` in the lane
+    layout, the X-drop checkpoint interval."""
+    Ws, P, LW, BT = _lane_geometry(D)
+    bytes_per_col = BT * LW
+    NC = max(2 * 1024 * 1024 // bytes_per_col, 8)
+    NC = 1 << int(np.log2(NC))
+    N = max(_ceil(Ns, 8), Ws)
+    if NC >= N:
+        NC = _ceil(N, 8)
+    return NC
 
 
 def _band_sweep(q: torch.Tensor, s: torch.Tensor, d_rows: torch.Tensor,
@@ -131,15 +179,38 @@ def _band_sweep(q: torch.Tensor, s: torch.Tensor, d_rows: torch.Tensor,
         yield valid, ea, eb, E, diag, F, H
 
 
+def _score_sweep(q, s, d_rows, subst8, D: int, gap_first: int,
+                 gap_extend: int, x_drop: int = 0, nc: int = 0):
+    """K1's function column by column: yields, per window column, (best
+    so far, the rows that swept this column).  With ``x_drop > 0`` a row
+    is latched dead after a column j with (j + 1) % nc == 0 when its best
+    is positive and max(H, E, 0) over the band is below best - x_drop
+    (lambda_tpu/ops/sw_band.py:sw_band_xdrop_reference)."""
+    best = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    live = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    for j, (_, _, _, E, _, _, H) in enumerate(_band_sweep(
+            q, s, d_rows, subst8, D, gap_first, gap_extend)):
+        swept = live.clone()
+        best = torch.where(live, torch.maximum(best, H.max(dim=1).values),
+                           best)
+        if x_drop > 0 and (j + 1) % nc == 0:
+            cur = torch.maximum(H.max(dim=1).values,
+                                E.max(dim=1).values).clamp(min=0)
+            live &= ~((best > 0) & (cur < best - x_drop))
+        yield best, swept
+
+
 def sw_band_score_torch(q: torch.Tensor, s: torch.Tensor,
                         d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
-                        gap_first: int, gap_extend: int) -> torch.Tensor:
-    """Plain PyTorch version of K1 and of K3 (:func:`_band_sweep`).  Same
-    arguments and result as :func:`sw_band_score_device`."""
+                        gap_first: int, gap_extend: int, x_drop: int = 0,
+                        nc: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K1 and of K3 (:func:`_band_sweep`, with
+    X-drop as :func:`_score_sweep`).  Same arguments and result as
+    :func:`sw_band_score_device`."""
     best = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
-    for *_, H in _band_sweep(q, s, d_rows, subst8, D, gap_first,
-                             gap_extend):
-        best = torch.maximum(best, H.max(dim=1).values)
+    for best, _ in _score_sweep(q, s, d_rows, subst8, D, gap_first,
+                                gap_extend, x_drop, nc):
+        pass
     return best
 
 
@@ -154,18 +225,56 @@ def check_cuda_inputs(kernel, **tensors):
                              f"{dt} tensor (got {t.dtype} on {t.device})")
 
 
-def _launch_config(B: int, D: int, C: int):
-    """K1 and K2: (threads per block, dynamic shared bytes, needs global
-    scratch)."""
-    Ws = D + 1
-    for threads in (128, 64, 32):
-        smem = 4 * (C * C + 2 * Ws * threads)
-        if smem <= _SMEM_MAX:
-            return threads, smem, False
-    return 128, 4 * C * C, True
+# K1 and K2 (csrc/band_warp.cuh): threads per block, window columns staged
+# per refill, offsets per segment when the band exceeds 32 lanes x 32
+BW_THREADS = 128
+BW_CHUNK = 256
+SEG = 1024
+# run lengths compiled into the kernels: K1 takes any of R_SCORE, K2 a
+# run whose codes pack into whole 32-bit words (or R = 1, 2)
+R_SCORE = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32)
+R_DIRS = (1, 2, 4, 8, 12, 16, 20, 24, 32)
+# warp_config's rule, per kernel: (offsets per lane a small launch aims
+# at, lanes in flight above which G halves, longest run G may halve to).
+# Set from a (B, D) sweep of every G on the H100 (chip_smoke.py
+# --warp-sweep, numbers in PERF.md): a small
+# launch is bound by one warp's chain of dependent instructions per
+# column, which short runs keep short; a large one by issue, where fewer
+# lanes per alignment waste fewer on padding and on the scan.  K2 holds
+# a code per offset besides, so it keeps its runs shorter.
+_WARP_RULE = {False: (5, 48 * 1024, 32), True: (1, 48 * 1024, 16)}
 
 
-def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
+def warp_config(B: int, D: int, dirs: bool = False):
+    """(G, R, S) for a K1 (or, with ``dirs``, K2) launch of B rows of band
+    D: G lanes per alignment, R band offsets per lane, S segments of
+    32 x 32 offsets (S > 1 only for D + 1 > 1024, G = R = 32, state in
+    global scratch).  G starts at the power of two that gives runs of
+    about the rule's length (16 or 32 lanes: small launches spread each
+    band over half a warp or a whole one) and halves, down to 4, while
+    B * G lanes exceed the rule's count: large launches pack 32 / G
+    alignments into a warp."""
+    W = D + 1
+    if W > SEG:
+        return 32, 32, -(-W // SEG)
+    run, lanes, r_max = _WARP_RULE[dirs]
+    G = min(32, max(4, 1 << (-(-W // run) - 1).bit_length()))
+    while G > 4 and B * G > lanes and -(-W // (G // 2)) <= r_max:
+        G //= 2
+    need = -(-W // G)
+    R = next(r for r in (R_DIRS if dirs else R_SCORE) if r >= need)
+    return G, R, 1
+
+
+def _warp_smem(G: int, C: int) -> int:
+    """Dynamic shared bytes of a K1/K2 block: the transposed int32 matrix
+    (rounded to 16 bytes), then per group two staging buffers of
+    BW_CHUNK + 16 bytes (query and window ranks)."""
+    return _ceil(4 * C * C, 16) + (BW_THREADS // G) * 2 * (BW_CHUNK + 16)
+
+
+def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend,
+                        x_drop=0, nc=0):
     from . import _build
 
     global launches
@@ -175,18 +284,19 @@ def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
                       subst8=subst8)
     lib = _build.load("sw_band")
     fn = lib.sw_band_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty(B, dtype=torch.int32, device=q.device)
-    threads, smem, use_scratch = _launch_config(B, D, C)
-    scratch = (torch.empty(2 * (D + 1) * B, dtype=torch.int32,
-                           device=q.device) if use_scratch else None)
+    G, R, S = warp_config(B, D)
+    scratch = (torch.empty(3 * S * SEG * B, dtype=torch.int32,
+                           device=q.device) if S > 1 else None)
     err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
              subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
+             G, R, S, int(x_drop), int(nc),
              scratch.data_ptr() if scratch is not None else None,
-             threads, smem, out.data_ptr(),
+             _warp_smem(G, C), out.data_ptr(),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
@@ -196,16 +306,17 @@ def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
 
 def sw_band_score_device(q: torch.Tensor, s: torch.Tensor,
                          d_rows: torch.Tensor, subst8: torch.Tensor, D: int,
-                         gap_first: int, gap_extend: int,
-                         x_drop: int = 0) -> torch.Tensor:
+                         gap_first: int, gap_extend: int, x_drop: int = 0,
+                         nc: int = 0) -> torch.Tensor:
     """Best in-band local score per row.
 
     q: (B, N) query ranks (PAD beyond the query), s: (B, N) the virtual
     windows, d_rows: (B,) int32 per-row band sizes <= D (-1 marks a
     batch-padding row that scores 0), subst8: (C, C) int8 with the PAD
-    row/column last.  Returns (B,) int32.  CUDA tensors (int8 ranks)
-    launch K1, or K3 when the layout is 'sublane'; CPU tensors run
-    :func:`sw_band_score_torch`."""
+    row/column last.  ``x_drop > 0`` applies X-drop with checkpoints
+    every ``nc`` columns (:func:`plan_nc`).  Returns (B,) int32.  CUDA
+    tensors (int8 ranks) launch K1, or K3 when the layout is 'sublane';
+    CPU tensors run :func:`sw_band_score_torch`."""
     if x_drop > 0 and _LAYOUT != "lane":
         # as lambda_tpu/ops/sw_band.py:868-874: the sublane kernel has no
         # X-drop, and exact scores where X-drop ones are asked for would
@@ -213,16 +324,17 @@ def sw_band_score_device(q: torch.Tensor, s: torch.Tensor,
         raise NotImplementedError(
             "LAMBDA_SW_XDROP requires the default lane layout "
             "(LAMBDA_SWB_LAYOUT=sublane does not implement X-drop)")
-    if x_drop > 0:
-        raise NotImplementedError("X-drop in the pass-1 score kernel is "
-                                  "not yet ported")
+    if x_drop > 0 and nc <= 0:
+        raise ValueError("X-drop needs the column chunk nc > 0")
     _check_shapes("K1", q, s, d_rows, subst8)
     if q.is_cuda:
-        launch = (_sw_band_score_sub_cuda if _LAYOUT == "sublane"
-                  else _sw_band_score_cuda)
-        return launch(q, s, d_rows, subst8, D, gap_first, gap_extend)
+        if _LAYOUT == "sublane":
+            return _sw_band_score_sub_cuda(q, s, d_rows, subst8, D,
+                                           gap_first, gap_extend)
+        return _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first,
+                                   gap_extend, x_drop, nc)
     return sw_band_score_torch(q, s, d_rows, subst8, D, gap_first,
-                               gap_extend)
+                               gap_extend, x_drop, nc)
 
 
 def _check_shapes(kernel, q, s, d_rows, subst8):
@@ -287,7 +399,8 @@ def _sw_band_score_sub_cuda(q, s, d_rows, subst8, D, gap_first,
 def sw_band_score(q: np.ndarray, s: np.ndarray, d_rows: np.ndarray,
                   subst_ext8, gap_first: int, gap_extend: int,
                   device: str = "cuda") -> np.ndarray:
-    """Host API: best banded local score per row.
+    """Host API: best banded local score per row, with the latched
+    X-drop at the JAX plan's chunk (as ``sw_band_score_pallas``).
 
     q: (B, Mq) ranks (PAD rank = alphabet size); s: (B, Ns) the VIRTUAL
     windows; d_rows: per-row band sizes.  A query wider than the window
@@ -306,7 +419,8 @@ def sw_band_score(q: np.ndarray, s: np.ndarray, d_rows: np.ndarray,
         torch.as_tensor(np.ascontiguousarray(s, dtype=np.int8), device=dev),
         torch.as_tensor(np.asarray(d_rows, dtype=np.int32), device=dev),
         torch.as_tensor(np.asarray(subst_ext8, dtype=np.int8), device=dev),
-        D, gap_first, gap_extend)
+        D, gap_first, gap_extend, _XDROP,
+        plan_nc(Ns, D) if _XDROP else 0)
     return out.cpu().numpy()
 
 
@@ -324,7 +438,7 @@ def sw_band_align_torch(q: torch.Tensor, s: torch.Tensor,
     dev = q.device
     W = D + 1
     gf, ge = int(gap_first), int(gap_extend)
-    dirs = torch.zeros((N, W, B), dtype=torch.uint8, device=dev)
+    dirs = torch.zeros((B, N, W), dtype=torch.uint8, device=dev)
     w = torch.arange(W, device=dev)
     wmin = (D - d_rows.to(torch.int64))[:, None]
     best = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -344,7 +458,7 @@ def sw_band_align_torch(q: torch.Tensor, s: torch.Tensor,
         f_ext = (torch.cat([neg_col, F[:, :-1]], dim=1) + ge
                  >= torch.cat([zero_col, H[:, :-1]], dim=1) + gf)
         code = code | torch.where(f_ext & (w[None, :] > wmin), 8, 0)
-        dirs[j] = torch.where(valid, code, 0).to(torch.uint8).T
+        dirs[:, j] = torch.where(valid, code, 0).to(torch.uint8)
         # end cell: max H, then smallest i + j (key 2j + w), then
         # smallest i (a later column); within a column the first w at
         # the column's maximum has the smallest key
@@ -371,27 +485,29 @@ def _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
                       subst8=subst8)
     lib = _build.load("sw_band_dirs")
     fn = lib.sw_band_dirs_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [
-        ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     dev = q.device
-    dirs = torch.empty((N, D + 1, B), dtype=torch.uint8, device=dev)
+    G, R, S = warp_config(B, D, dirs=True)
+    # the kernel's rows hold the launch's G * R * S offsets, the band's
+    # D + 1 last: padding below the band keeps each group's stores whole
+    Wp = G * R * S
+    dirs = torch.empty((B, N, Wp), dtype=torch.uint8, device=dev)
     best, end_j, end_w = (torch.empty(B, dtype=torch.int32, device=dev)
                           for _ in range(3))
-    threads, smem, use_scratch = _launch_config(B, D, C)
-    scratch = (torch.empty(2 * (D + 1) * B, dtype=torch.int32, device=dev)
-               if use_scratch else None)
+    scratch = (torch.empty(3 * S * SEG * B, dtype=torch.int32, device=dev)
+               if S > 1 else None)
     err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
              subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
-             scratch.data_ptr() if scratch is not None else None,
-             threads, smem, dirs.data_ptr(), best.data_ptr(),
+             G, R, S, scratch.data_ptr() if scratch is not None else None,
+             _warp_smem(G, C), dirs.data_ptr(), best.data_ptr(),
              end_j.data_ptr(), end_w.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
     launches_dirs += 1
-    return dirs, best, end_j, end_w
+    return dirs[:, :, Wp - 1 - D:], best, end_j, end_w
 
 
 def sw_band_align_device(q: torch.Tensor, s: torch.Tensor,
@@ -399,13 +515,14 @@ def sw_band_align_device(q: torch.Tensor, s: torch.Tensor,
                          gap_first: int, gap_extend: int):
     """The banded DP with direction codes, for the host walk.
 
-    Same inputs as :func:`sw_band_score_device`.  Returns (dirs, best,
-    end_j, end_w): dirs (N, D+1, B) uint8, the code of cell (column j,
-    band offset w) of row b at dirs[j, w, b] (bits 0-1 the H source --
-    1 diagonal, 2 E, 3 F, 0 none --, 4 E extends, 8 F extends, 0 off
-    band); best (B,) int32 the row's best score; (end_j, end_w) (B,)
-    int32 the end cell the walk starts from (-1 for a score of 0).  CUDA
-    tensors launch K2; CPU tensors run :func:`sw_band_align_torch`."""
+    Same inputs as :func:`sw_band_score_device` (no X-drop: pass 2 is
+    exact).  Returns (dirs, best, end_j, end_w): dirs (B, N, D+1) uint8,
+    the code of cell (column j, band offset w) of row b at dirs[b, j, w]
+    (bits 0-1 the H source -- 1 diagonal, 2 E, 3 F, 0 none --, 4 E
+    extends, 8 F extends, 0 off band; from K2 a view of its padded rows);
+    best (B,) int32 the row's best score; (end_j, end_w) (B,) int32 the
+    end cell the walk starts from (-1 for a score of 0).  CUDA tensors
+    launch K2; CPU tensors run :func:`sw_band_align_torch`."""
     _check_shapes("K2", q, s, d_rows, subst8)
     if q.is_cuda:
         return _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first,
@@ -419,10 +536,10 @@ def traceback_banded(dirs: np.ndarray, b: int, end_j: int, end_w: int,
     """Walk the direction codes of row ``b`` back from its end cell.
 
     Port of lambda_tpu/ops/sw_band.py:traceback_banded on the port's
-    dirs layout (N, D+1, B), for a row whose best score is positive.
+    dirs layout (B, N, D+1), for a row whose best score is positive.
     Returns (q0, s0, ops): 0-based window-relative starts and the
     run-length op list ('M'/'D'/'I') of the sw_xla conventions."""
-    col = dirs[:, :, b]
+    col = dirs[b]
     N, W = col.shape
     j, w = int(end_j), int(end_w)
     ops: list[str] = []

@@ -11,7 +11,8 @@ Port of ``lambda_tpu/search/extend.py`` (itself a port of
   scores every candidate with K1, or K3 in the sublane layout
   (``sw_scores_device``: windows gathered on the device from the
   resident query/subject tensors), the caller filters by bit
-  score/e-value, pass 2 (``trace_pass``) runs the traceback with
+  score/e-value (pass 1 honours ``LAMBDA_SW_XDROP`` as the JAX package
+  does), pass 2 (``trace_pass``) runs the traceback with
   alignment statistics in the host C++ helpers, or, under
   ``LAMBDA_SW_TRACE=device``, through K2 on the same device windows with
   a host walk.  Candidates are bucketed by padded (qlen, band) shape
@@ -300,9 +301,13 @@ def sw_scores_device(m: MatchBatch, d_trans_q, d_trans_sbj, d_sbj_offsets,
                      bs_split: bool, stats=None) -> np.ndarray:
     """Pass-1 banded scores with device-side window gathering, one K1
     (or K3) launch per (qlen bucket, band bucket, matrix) class.  (The JAX
-    package merges classes by a cost model measured on the TPU; padding
-    cannot change a score, so launching each class alone gives the same
-    scores.)  ``stats`` records launches and rows per launch."""
+    package merges classes by a cost model measured on the TPU, and turns
+    that merging off under X-drop; padding cannot change an exact score,
+    so launching each class alone gives the same scores.)  With the
+    latched ``LAMBDA_SW_XDROP`` each class is scored with X-drop at the
+    JAX plan's column chunk for that class (lambda_tpu/search/extend.py:
+    the native and XLA wirings take ``_plan(qbk + dbk, dbk)[3]``).
+    ``stats`` records launches and rows per launch."""
     n = len(m)
     scores = np.zeros(n, dtype=np.int64)
     if n == 0:
@@ -316,8 +321,10 @@ def sw_scores_device(m: MatchBatch, d_trans_q, d_trans_sbj, d_sbj_offsets,
             stats.ext_dispatch_rows += len(idxs)
         q, s, d_rows = _gather_windows(resident, m, idxs, e8.shape[0] - 1,
                                        qbk + dbk)
-        out = sw_band.sw_band_score_device(q, s, d_rows, e8, dbk,
-                                           int(gap_first), int(gap_extend))
+        x_drop = sw_band._XDROP
+        out = sw_band.sw_band_score_device(
+            q, s, d_rows, e8, dbk, int(gap_first), int(gap_extend), x_drop,
+            sw_band.plan_nc(qbk + dbk, dbk) if x_drop else 0)
         pending.append((idxs, out))
     for idxs, out in pending:
         scores[idxs] = out.cpu().numpy()

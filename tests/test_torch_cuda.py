@@ -39,7 +39,7 @@ def _case(seed, B, N, D, A=27):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [7, 39, 127, 1023])
+@pytest.mark.parametrize("D", [7, 39, 127, 1023, 2047])
 def test_k1_matches_plain_version(card, D):
     """K1 (csrc/sw_band.cu) == the plain PyTorch version, exactly, and
     each call launches the kernel once."""
@@ -53,6 +53,58 @@ def test_k1_matches_plain_version(card, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [7, 39, 127, 1023, 2047])
+def test_k1_xdrop_matches_plain_version(card, D):
+    """K1 with X-drop (checkpoints every 16 columns) == the plain version,
+    exactly, and X-drop changes some scores."""
+    args = [torch.as_tensor(x, device=card) for x in _case(D, 64, 48 + D, D)]
+    exact = sw_band.sw_band_score_torch(*args, D, GF, GE)
+    got = sw_band.sw_band_score_device(*args, D, GF, GE, 4, 16)
+    want = sw_band.sw_band_score_torch(*args, D, GF, GE, 4, 16)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert bool((want != exact).any())
+
+
+def _with_config(monkeypatch, G, R):
+    """Force the wrapper's (G, R): the band D = G * R - 1 - R // 2 leaves
+    padding offsets below it in every run length but R = 1."""
+    D = max(G * R - 1 - R // 2, 0)
+    monkeypatch.setattr(sw_band, "warp_config",
+                        lambda B, D_, dirs=False: (G, R, 1))
+    return D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [4, 8, 16, 32])
+def test_k1_every_run_length(card, monkeypatch, G):
+    """K1 == its plain version at every R the wrapper can choose, with and
+    without X-drop, for each group width G."""
+    for R in sw_band.R_SCORE:
+        D = _with_config(monkeypatch, G, R)
+        args = [torch.as_tensor(x, device=card)
+                for x in _case(G * 100 + R, 37, 40 + D, D)]
+        for xd, nc in ((0, 0), (6, 8)):
+            got = sw_band.sw_band_score_device(*args, D, GF, GE, xd, nc)
+            want = sw_band.sw_band_score_torch(*args, D, GF, GE, xd, nc)
+            assert torch.equal(got.cpu(), want.cpu()), (G, R, xd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [4, 8, 16, 32])
+def test_k2_every_run_length(card, monkeypatch, G):
+    """K2 == its plain version (codes, scores, end cells) at every R the
+    wrapper can choose for K2, for each group width G."""
+    for R in sw_band.R_DIRS:
+        D = _with_config(monkeypatch, G, R)
+        args = [torch.as_tensor(x, device=card)
+                for x in _case(G * 100 + R, 37, 40 + D, D)]
+        got = sw_band.sw_band_align_device(*args, D, GF, GE)
+        want = sw_band.sw_band_align_torch(*args, D, GF, GE)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), (G, R)
+
+
+@pytest.mark.cuda
 def test_k1_refuses_wrong_dtype(card):
     q, s, d, e8 = (torch.as_tensor(x, device=card)
                    for x in _case(1, 8, 20, 7))
@@ -61,7 +113,7 @@ def test_k1_refuses_wrong_dtype(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [7, 39, 127, 1023])
+@pytest.mark.parametrize("D", [7, 39, 127, 1023, 2047])
 def test_k2_matches_plain_version(card, D):
     """K2 (csrc/sw_band_dirs.cu) == the plain PyTorch version: the codes
     of every cell, the best scores and the end cells, exactly; one launch

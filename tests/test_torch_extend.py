@@ -63,7 +63,9 @@ def test_bucket_groups_match_jax(matches):
         assert tx._bucket_d(n) == jx._bucket_d(n)
 
 
-def test_pass1_scores_match_jax(matches):
+def _pass1_both(matches):
+    """Pass-1 scores of the merged matches: JAX ``_run_bucketed`` (CPU
+    backend) and the port's ``sw_scores_device`` on CPU tensors."""
     jm, _ = _merged(jx, matches)
     sch = scoring.make_protein_scheme(62, -11, -1)
     ext = sw_xla.extend_matrix(sch.matrix)
@@ -84,10 +86,31 @@ def test_pass1_scores_match_jax(matches):
         torch.as_tensor(matches["offsets"][:-1].astype(np.int64)),
         torch.as_tensor(matches["offsets"][1:] - matches["offsets"][:-1]),
         e8, e8, gf, ge, False, stats=st)
+    return tm, st, got, want
+
+
+def test_pass1_scores_match_jax(matches):
+    tm, st, got, want = _pass1_both(matches)
     assert (want > 0).sum() > 20
     np.testing.assert_array_equal(got, want)
     assert st.ext_dispatches == len(
         tx.bucket_groups(*tx._ext_geometry(tm)[:2], np.zeros(len(tm), bool)))
+
+
+@pytest.mark.parametrize("x_drop", [1, 3, 5])
+def test_pass1_scores_xdrop_match_jax(matches, monkeypatch, x_drop):
+    """LAMBDA_SW_XDROP (latched in both packages, set here on the
+    modules): the port's pass 1 takes each class's column chunk from the
+    JAX plan and gives JAX's X-drop scores, which differ from the exact
+    ones."""
+    from lambda_tpu.ops import sw_band as jsw
+
+    _, _, exact, _ = _pass1_both(matches)
+    monkeypatch.setattr(jsw, "_XDROP", x_drop)
+    monkeypatch.setattr(tx.sw_band, "_XDROP", x_drop)
+    _, _, got, want = _pass1_both(matches)
+    np.testing.assert_array_equal(got, want)
+    assert (got != exact).any() and (got <= exact).all()
 
 
 def test_trace_pass_matches_jax(matches):

@@ -124,3 +124,39 @@ def test_kernel_modules_import_alone_without_jax(module, counters):
                        capture_output=True, text=True,
                        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"})
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("D", [0, 7, 23, 39, 127, 255, 1023, 2047])
+def test_lane_plan_copy_matches_jax_package(monkeypatch, D):
+    """ops/sw_band.py keeps its own copy of the lane plan's geometry and
+    column chunk (the X-drop checkpoints) and of the LAMBDA_SWB_BT and
+    LAMBDA_SW_XDROP latches; they equal the JAX package's."""
+    from lambda_tpu.ops import sw_band as jsw
+    from lambda_tpu_torch.ops import sw_band as tsw
+
+    assert (tsw._BT_CAP, tsw._XDROP) == (jsw._BT_CAP, jsw._XDROP)
+    assert tsw._lane_geometry(D) == jsw._lane_geometry(D)
+    for Ns in (D + 1, D + 16, D + 151, D + 8192):
+        assert tsw.plan_nc(Ns, D) == jsw._plan(Ns, D, layout="lane")[3]
+
+
+def test_band_core_header_is_shared_and_hashed(monkeypatch, tmp_path):
+    """K1 and K2 compile the one band core, csrc/band_warp.cuh, and a
+    change to it changes both libraries' build key."""
+    from lambda_tpu_torch.ops import _build
+
+    csrc = REPO / "lambda_tpu_torch" / "csrc"
+    for name in ("sw_band", "sw_band_dirs"):
+        assert '#include "band_warp.cuh"' in (csrc / f"{name}.cu").read_text()
+    core = (csrc / "band_warp.cuh").read_text()
+    for dpx in ("__viaddmax_s32(", "__viaddmax_s32_relu(", "__vimax3_s32("):
+        assert dpx in core
+    assert core.count("__syncthreads()") == 1      # the prologue only
+    for f in csrc.glob("*"):
+        if f.is_file():
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    before = {n: _build.build_key(n) for n in ("sw_band", "sw_band_dirs")}
+    (tmp_path / "band_warp.cuh").write_text(core + "\n// changed\n")
+    after = {n: _build.build_key(n) for n in ("sw_band", "sw_band_dirs")}
+    assert all(before[n] != after[n] for n in before)

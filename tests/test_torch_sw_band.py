@@ -118,15 +118,6 @@ def test_ext8_roundtrip_matches_jax():
     assert (e8[:, A] == tsw.PAD_SCORE8).all()
 
 
-def test_x_drop_not_ported():
-    subst, e8, q, s, d = _case(4, 2, 17, 17, 7)
-    with pytest.raises(NotImplementedError):
-        tsw.sw_band_score_device(
-            *(torch.as_tensor(x) for x in (q.astype(np.int8),
-                                           s.astype(np.int8), d, e8)),
-            7, GF, GE, x_drop=20)
-
-
 @pytest.mark.parametrize("D", [7, 39, 127])
 def test_plain_matches_jax_sublane_kernel(monkeypatch, small_tiles, D):
     """K3: the JAX sublane-layout kernel (LAMBDA_SWB_LAYOUT=sublane) in
@@ -163,3 +154,126 @@ def test_sublane_layout_latch_and_x_drop(monkeypatch):
     finally:
         monkeypatch.delenv("LAMBDA_SWB_LAYOUT")
         importlib.reload(tsw)
+
+
+def _xdrop_trough(monkeypatch):
+    """tests/test_ops.py:_xdrop_setup: m1 (20 matches), a deep trough (40
+    mismatches), m2 (30 matches), with JAX's column chunk forced to 16."""
+    monkeypatch.setattr(jsw, "_BT_CAP", 8)
+    monkeypatch.setattr(jsw, "_BTL_CAP", 128)
+    orig_plan = jsw._plan
+
+    def small_nc(Ns, D, layout=None):
+        N, W, BROWS, NC, JB = orig_plan(Ns, D, layout)
+        return N, W, BROWS, 16, JB
+
+    monkeypatch.setattr(jsw, "_plan", small_nc)
+    monkeypatch.setattr(tsw, "plan_nc", lambda Ns, D: 16)
+    A = 4
+    subst = np.full((A, A), -10, dtype=np.int32)
+    np.fill_diagonal(subst, 5)
+    e8 = sw_pallas.extend_matrix8(subst)
+    q = np.zeros((1, 90), dtype=np.int32)
+    s = np.zeros((1, 90), dtype=np.int32)
+    q[0, 20:60] = 1
+    s[0, 20:60] = 2
+    q[0, 60:90] = s[0, 60:90] = 3
+    return subst, e8, q, s, np.zeros(1, dtype=np.int32)
+
+
+@pytest.mark.parametrize("x_drop,want", [(16, 100), (10000, 150)])
+def test_xdrop_trough_matches_jax(monkeypatch, x_drop, want):
+    """LAMBDA_SW_XDROP at the op level: X 16 latches the row dead inside
+    the trough (100, sw_band_xdrop_reference), a large X is exact (150),
+    through the port's host API, its device entry (CPU tensors) and the
+    JAX kernel in interpret mode."""
+    subst, e8, q, s, d = _xdrop_trough(monkeypatch)
+    monkeypatch.setattr(jsw, "_XDROP", x_drop)
+    monkeypatch.setattr(tsw, "_XDROP", x_drop)
+    jax_got = jsw.sw_band_score_pallas(q, s, d, e8, GF, GE, interpret=True)
+    got = tsw.sw_band_score(q, s, d, e8, GF, GE, device="cpu")
+    dev = tsw.sw_band_score_device(
+        *(torch.as_tensor(x) for x in (q.astype(np.int8), s.astype(np.int8),
+                                       d, e8)), 0, GF, GE, x_drop, 16)
+    assert int(got[0]) == int(jax_got[0]) == int(dev[0]) == want \
+        == jsw.sw_band_xdrop_reference(q[0], s[0], 0, subst, GF, GE,
+                                       x_drop=x_drop, nc=16)
+
+
+@pytest.mark.parametrize("D", [7, 39, 127])
+@pytest.mark.parametrize("x_drop", [2, 5])
+def test_xdrop_matches_jax_per_band_bucket(monkeypatch, D, x_drop):
+    """Random rows, half with a planted homolog: the port's X-drop scores
+    equal the JAX lane kernel's (interpret mode, chunk 16), and X-drop
+    changes some of them."""
+    subst, e8, q, s, d = _case(700 + D + x_drop, 8, 40, 40 + D, D)
+    Ns = -(-(40 + D) // 16) * 16               # whole 16-column chunks
+    s = np.concatenate([s, np.zeros((8, Ns - s.shape[1]), np.int32)], 1)
+    _xdrop_trough(monkeypatch)
+    exact = tsw.sw_band_score(q, s, d, e8, GF, GE, device="cpu")
+    monkeypatch.setattr(jsw, "_XDROP", x_drop)
+    monkeypatch.setattr(tsw, "_XDROP", x_drop)
+    want = jsw.sw_band_score_pallas(q, s, d, e8, GF, GE, interpret=True)
+    got = tsw.sw_band_score(q, s, d, e8, GF, GE, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert (got != exact).any() and (got <= exact).all()
+
+
+def test_xdrop_latched_at_import(monkeypatch):
+    """LAMBDA_SW_XDROP is read once, when the module is imported, as in
+    the JAX package (lambda_tpu/ops/sw_band.py:72); 0 when unset."""
+    import importlib
+    import os
+
+    assert tsw._XDROP == int(os.environ.get("LAMBDA_SW_XDROP", "0"))
+    monkeypatch.setenv("LAMBDA_SW_XDROP", "25")
+    try:
+        assert importlib.reload(tsw)._XDROP == 25
+    finally:
+        monkeypatch.delenv("LAMBDA_SW_XDROP")
+        importlib.reload(tsw)
+    assert tsw._XDROP == 0
+
+
+def test_xdrop_needs_a_chunk():
+    subst, e8, q, s, d = _case(4, 2, 17, 17, 7)
+    args = [torch.as_tensor(x) for x in (q.astype(np.int8), s.astype(np.int8),
+                                         d, e8)]
+    with pytest.raises(ValueError, match="nc"):
+        tsw.sw_band_score_device(*args, 7, GF, GE, x_drop=20)
+
+
+@pytest.mark.parametrize("D", [7, 15, 23, 31, 39, 47, 63, 79, 95, 127, 159,
+                               191, 255, 319, 383, 511, 767, 1023])
+def test_plan_nc_matches_jax_plan(monkeypatch, D):
+    """The port's copy of the lane plan's column chunk equals
+    ``_plan(qbk + D, D)[3]`` for every query bucket, at the default
+    LAMBDA_SWB_BT cap and a small one."""
+    from lambda_tpu.search.extend import _BUCKETS
+
+    for cap in (512, 8):
+        monkeypatch.setattr(jsw, "_BT_CAP", cap)
+        monkeypatch.setattr(tsw, "_BT_CAP", cap)
+        for qbk in _BUCKETS:
+            assert tsw.plan_nc(qbk + D, D) == \
+                jsw._plan(qbk + D, D, layout="lane")[3], (qbk, D, cap)
+        if cap == 512 and D == 23:
+            assert tsw.plan_nc(128 + 23, 23) == 32
+
+
+@pytest.mark.parametrize("B,D,k1,k2", [
+    (530, 23, (8, 3, 1), (32, 1, 1)), (24576, 39, (4, 10, 1), (4, 12, 1)),
+    (24576, 23, (4, 6, 1), (4, 8, 1)), (120, 1023, (32, 32, 1), (32, 32, 1)),
+    (40, 2047, (32, 32, 2), (32, 32, 2)), (2048, 127, (16, 8, 1), (16, 8, 1)),
+    (100000, 7, (4, 2, 1), (4, 2, 1)), (64, 7, (4, 2, 1), (8, 1, 1)),
+    (8192, 255, (8, 32, 1), (16, 16, 1)), (530, 127, (32, 4, 1), (32, 4, 1))])
+def test_warp_config(B, D, k1, k2):
+    """K1's and K2's (G, R, S): small launches keep runs short, large ones
+    pack more alignments into a warp (the rule measured on the card); every
+    run length is compiled; K2's runs pack into whole words and its rows
+    cover the band."""
+    assert tsw.warp_config(B, D) == k1
+    assert tsw.warp_config(B, D, dirs=True) == k2
+    for (G, R, S), rs in ((k1, tsw.R_SCORE), (k2, tsw.R_DIRS)):
+        assert G * R * S >= D + 1 and R in rs and G in (4, 8, 16, 32)
+    assert k2[0] * k2[1] * k2[2] % 4 == 0

@@ -55,7 +55,7 @@ def _indel_case(seed, B, Mq, D, letters):
 
 
 def _jax_dirs(q, s, d, e8, gf, ge):
-    """JAX's K2 in interpret mode, in the port's layout: (dirs (N, D+1, B),
+    """JAX's K2 in interpret mode, as (dirs (N, D+1, B),
     best (B,), bestj (B, D+1)) over the first window-width columns."""
     B, Ns = s.shape
     D = int(d.max())
@@ -79,13 +79,18 @@ def _jax_dirs(q, s, d, e8, gf, ge):
 
 
 def _port_dirs(q, s, d, e8, gf, ge):
+    """The plain K2 in the port's layout (B, N, D+1), its codes also
+    returned in JAX's (N, D+1, B) for the comparison, and E and F."""
     Ns = s.shape[1]
     D = int(d.max())
     qp = np.full((q.shape[0], Ns), e8.shape[0] - 1, np.int8)
     qp[:, :min(q.shape[1], Ns)] = q[:, :Ns]
     args = [torch.as_tensor(x) for x in (qp, s.astype(np.int8), d, e8)]
-    out = tsw.sw_band_align_torch(*args, D, gf, ge)
-    return [x.numpy() for x in out + _gap_values(*args, D, gf, ge)]
+    dirs, *rest = (x.numpy() for x in tsw.sw_band_align_torch(*args, D, gf,
+                                                              ge))
+    assert dirs.shape == (len(d), Ns, D + 1)
+    band = np.ascontiguousarray(dirs.transpose(1, 2, 0))
+    return [band, *rest, *(x.numpy() for x in _gap_values(*args, D, gf, ge))]
 
 
 def _gap_values(q, s, d, e8, D, gf, ge):
