@@ -30,8 +30,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
                24576} x D in {23, 39, 127} (query bucket 128), both held
                against the plain version; a record, it selects nothing
 7. k4       -- K4 (rectangle) against its plain version at M in {128, 512,
-               2048} with windows up to 2 M, through the op's host entry
-               point (its launches counted)
+               2048} with windows up to 2 M, at M 1000 (eight strips, the
+               top one ragged) and at M_MAX 16384 with a 64-column
+               window (16 strips), all through the op's host entry point
+               (its launches counted); per case the kernel's (R, W, P),
+               ms, device_ms, plain ms, bound, GCUPS and share of the
+               bound
 8. golden   -- the port's CLI, mkindexp + searchp on the blastp fixtures,
                byte-equal to tests/golden/blastp_m8.m8 and blastp_m9.m9;
                again with LAMBDA_SW_TRACE=device (K2) and with the sublane
@@ -66,6 +70,12 @@ call is enqueued), which leaves out the wrapper's host time.
 
 times K1 and K2 (device ms) at every group width on a (B, D) grid: the
 measurements behind ops/sw_band.py:warp_config.
+
+    python3 chip_smoke.py --rect-sweep
+
+times K4 (device ms) at the k4 phase's cases for every run length R
+whose strips cover M in at most 16 warps: the measurements behind
+ops/sw_rect.py:rect_config.
 """
 
 from __future__ import annotations
@@ -436,11 +446,15 @@ def k4_compare(q, s, e8, gf, ge, dev_info, reps=3, host_out=None) -> dict:
     B, M = q.shape
     N = s.shape[1]
     nbytes = B * M + B * N + 4 * B + e8.numel()
-    return dict(B=int(B), M=int(M), N=int(N), max_abs_err=err,
-                exact_equal=err == 0, max_score=int(out_k.max()),
-                **kt, plain_ms=p_ms,
-                **bound(cells, nbytes, dev_info),
-                cells=cells, gcups=cells / (k_ms * 1e-3) / 1e9)
+    bd = bound(cells, nbytes, dev_info)
+    return dict(B=int(B), M=int(M), N=int(N),
+                R_W_P=list(sw_rect.rect_config(int(B), int(M))),
+                max_abs_err=err, exact_equal=err == 0,
+                max_score=int(out_k.max()), **kt, plain_ms=p_ms, **bd,
+                cells=cells, gcups=cells / (k_ms * 1e-3) / 1e9,
+                device_gcups=cells / (kt["device_ms"] * 1e-3) / 1e9,
+                bound_share=bd["bound_ms"] / k_ms,
+                device_bound_share=bd["bound_ms"] / kt["device_ms"])
 
 
 def blosum_e8():
@@ -642,22 +656,27 @@ def phase_k3(dev_info) -> dict:
     return dict(bench=bench, worst=max(worst, bench["max_abs_err"]))
 
 
-def k4_inputs(rng, B: int, M: int, C: int):
+def k4_inputs(rng, B: int, M: int, C: int, N: int = 0):
     """Rectangle inputs: query lengths in (M/2, M], windows of 2 M columns
     holding (M, 2M] real ranks, half of them with a mutated copy of the
-    query; PAD (C - 1) trailing."""
+    query; PAD (C - 1) trailing.  With ``N`` (< M / 2): windows of N
+    columns holding (N/2, N] real ranks, half of them a mutated piece of
+    the query."""
     pad = C - 1
     q = np.full((B, M), pad, np.int8)
-    s = np.full((B, 2 * M), pad, np.int8)
+    s = np.full((B, N or 2 * M), pad, np.int8)
     for b in range(B):
         L = int(rng.integers(M // 2 + 1, M + 1))
-        S = int(rng.integers(M + 1, 2 * M + 1))
+        S = int(rng.integers(N // 2 + 1, N + 1) if N
+                else rng.integers(M + 1, 2 * M + 1))
         q[b, :L] = rng.integers(0, 20, L)
         s[b, :S] = rng.integers(0, 20, S)
         if b % 2 == 0:
-            off = int(rng.integers(0, S - L + 1))
-            s[b, off:off + L] = q[b, :L]
-            mut = rng.integers(0, L, L // 8)
+            n = min(L, S)
+            off = int(rng.integers(0, S - n + 1))
+            src = int(rng.integers(0, L - n + 1)) if N else 0
+            s[b, off:off + n] = q[b, src:src + n]
+            mut = rng.integers(0, n, n // 8)
             s[b, off + mut] = rng.integers(0, 20, len(mut))
     return q, s
 
@@ -708,18 +727,59 @@ def warp_sweep() -> None:
         sw_band.warp_config = rule
 
 
+def k4_cases(C: int) -> list:
+    """The k4 phase's (q, s) inputs: M 128, 512 and 2048 with windows up
+    to 2 M, B from 2,048 down to 64 (about 2^28 rectangle cells at most);
+    M 1000 (eight strips of 128, the top one ragged); M_MAX with B 16
+    and 64-column windows (16 strips of 1,024)."""
+    from lambda_tpu_torch.ops import sw_rect
+
+    rng = np.random.default_rng(29)
+    cases = []
+    for M in (128, 512, 2048, 1000):
+        B = int(max(64, min(2048, (1 << 28) // (M * 2 * M))))
+        cases.append(k4_inputs(rng, B, M, C))
+    cases.append(k4_inputs(rng, 16, sw_rect.M_MAX, C, N=64))
+    return cases
+
+
+def rect_sweep() -> None:
+    """``--rect-sweep``: K4 device times at the k4 phase's cases for each
+    run length R whose strips cover M in at most 16 warps, leaving no
+    half of a strip empty (the measurements ops/sw_rect.py:rect_config's
+    rule was set from); each line marks the rule's own choice."""
+    from lambda_tpu_torch.ops import sw_rect
+
+    e8_np, gf, ge = blosum_e8()
+    e8 = torch.as_tensor(e8_np, device="cuda")
+    rule = sw_rect.rect_config
+    try:
+        for q, s in k4_cases(e8_np.shape[0]):
+            qt, st = (torch.as_tensor(x, device="cuda") for x in (q, s))
+            B, M = q.shape
+            row = dict(B=B, M=M, N=s.shape[1], rule=list(rule(B, M)))
+            for R in sw_rect.R_RECT:
+                W = -(-M // (32 * R))
+                if W > sw_rect.MAX_STRIPS or (R > 1 and M <= 32 * R // 2):
+                    continue
+                sw_rect.rect_config = (lambda B_, M_, R=R, W=W:
+                                       (R, W, max(1, 4 // W)))
+                row[f"R{R}_W{W}_device_ms"] = time_ms(
+                    lambda: sw_rect.sw_score_device(qt, st, e8, gf, ge), 5,
+                    device=True)
+                sw_rect.rect_config = rule
+            emit(phase="rect_sweep", **row)
+    finally:
+        sw_rect.rect_config = rule
+
+
 def phase_k4(dev_info) -> dict:
     """K4 through its op entry point (the host API ``sw_score``, launches
     counted from 0), then each case's kernel against the plain version."""
     from lambda_tpu_torch.ops import sw_rect
 
-    rng = np.random.default_rng(29)
     e8_np, gf, ge = blosum_e8()
-    C = e8_np.shape[0]
-    cases = []
-    for M in (128, 512, 2048):
-        B = int(max(64, min(2048, (1 << 28) // (M * 2 * M))))
-        cases.append(k4_inputs(rng, B, M, C))
+    cases = k4_cases(e8_np.shape[0])
     sw_rect.launches = 0                       # the op's path starts
     host = [sw_rect.sw_score(q, s, e8_np, gf, ge, device="cuda")
             for q, s in cases]
@@ -1171,6 +1231,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--warp-sweep"]:
         phase_device()
         warp_sweep()
+        return 0
+    if sys.argv[1:2] == ["--rect-sweep"]:
+        phase_device()
+        rect_sweep()
         return 0
     if sys.argv[1:2] == ["--card-cpu-xdrop"]:       # phase_card_cpu_xdrop
         if not torch.cuda.is_available():

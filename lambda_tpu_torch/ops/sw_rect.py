@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .sw_band import NEG32, check_cuda_inputs, team_config
+from .sw_band import _SMEM_MAX, NEG32, check_cuda_inputs
 
 # the JAX package's query-length limit (sw_pallas.py:55), kept so both
 # packages accept the same inputs
@@ -32,6 +32,41 @@ M_MAX = 16384
 
 # kernel launches since the last reset (chip_smoke reads it)
 launches = 0
+
+# csrc/sw_rect.cu: the query positions per lane compiled into the kernel,
+# the most strips (warps) one alignment may take (a 512-thread block),
+# and the hand-off slots between two strips
+R_RECT = (1, 2, 4, 8, 16, 32)
+MAX_STRIPS = 16
+RING = 128
+
+
+def rect_config(B: int, M: int):
+    """(R, W, P) of a K4 launch: R query positions per lane, W strips of
+    32 * R positions (one warp each) per alignment, P alignments per
+    block (W * P <= 4 unless one alignment takes more).  A query of up to
+    128 positions takes one warp with the shortest run that covers it;
+    longer ones take runs of 4, doubled until at most 16 strips cover M.
+    Runs of 4 were the fastest at every case of ``chip_smoke.py
+    --rect-sweep`` they could cover (M 128 to 2,048, on the H100): more
+    warps in flight outweigh the per-step work that longer runs share."""
+    if M <= 128:
+        R = next(r for r in R_RECT if 32 * r >= M)
+    else:
+        R = 4
+        while 32 * R * MAX_STRIPS < M:
+            R *= 2
+    W = max(1, -(-M // (32 * R)))
+    return R, W, max(1, 4 // W)
+
+
+def _rect_smem(C: int, W: int, P: int) -> int:
+    """Dynamic shared bytes of a K4 block: the transposed int32 matrix with
+    a dead row and column (rounded to 16 bytes), the rings of int2 slots
+    between strips, and per alignment its best and two progress counters
+    per ring."""
+    return (-(-4 * (C + 1) ** 2 // 16) * 16 + P * (W - 1) * RING * 8
+            + P * 2 * W * 4)
 
 
 def sw_score_torch(q: torch.Tensor, s: torch.Tensor, subst8: torch.Tensor,
@@ -81,19 +116,16 @@ def _sw_score_cuda(q, s, subst8, gap_first, gap_extend):
     lib = _build.load("sw_rect")
     fn = lib.sw_rect_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty(B, dtype=torch.int32, device=q.device)
-    T, R, threads, smem, use_scratch = team_config(M, C)
-    per_block = threads // T
-    rows = -(-B // per_block) * per_block
-    scratch = (torch.empty(2 * T * R * rows, dtype=torch.int32,
-                           device=q.device) if use_scratch else None)
+    R, W, P = rect_config(B, M)
+    smem = _rect_smem(C, W, P)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"K4: a {C} x {C} matrix and {W} strips need "
+                         f"{smem} bytes of shared memory")
     err = fn(q.data_ptr(), s.data_ptr(), subst8.data_ptr(), B, M, N, C,
-             int(gap_first), int(gap_extend), T, R, threads,
-             scratch.data_ptr() if scratch is not None else None,
-             smem, out.data_ptr(),
+             int(gap_first), int(gap_extend), R, W, P, smem, out.data_ptr(),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")

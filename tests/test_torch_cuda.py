@@ -145,29 +145,57 @@ def test_k3_matches_plain_version(card, monkeypatch, D):
     assert int(got[3]) == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,N", [(1, 9), (20, 31), (128, 300), (700, 900),
-                                 (16384, 64)])
-def test_k4_matches_plain_version(card, M, N):
-    """K4 (csrc/sw_rect.cu) == its plain PyTorch version, exactly; one
-    launch per call."""
-    rng = np.random.default_rng(M)
-    A = 24
+def _rect_case(seed, B, M, N, A=24):
+    rng = np.random.default_rng(seed)
     subst = rng.integers(-4, 6, size=(A, A)).astype(np.int32)
     np.fill_diagonal(subst, rng.integers(4, 12, size=A))
     e8 = sw_band.extend_matrix8(subst)
-    B = 12
     q = rng.integers(0, A, size=(B, M)).astype(np.int8)
     s = rng.integers(0, A, size=(B, N)).astype(np.int8)
     n = min(M, N)
     s[::2, :n] = q[::2, :n]
     q[1, M // 2:] = A                      # trailing PAD
-    args = [torch.as_tensor(x, device=card) for x in (q, s, e8)]
+    return q, s, e8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(1, 9), (20, 31), (128, 300), (129, 200),
+                                 (256, 100), (257, 333), (512, 700),
+                                 (700, 900), (1000, 150), (4097, 50),
+                                 (8193, 40), (16384, 64)])
+def test_k4_matches_plain_version(card, M, N):
+    """K4 (csrc/sw_rect.cu) == its plain PyTorch version, exactly; one
+    launch per call.  The wrapper's (R, W) take one strip (M up to 128),
+    two (129: just above a strip; 256), more with a ragged top strip
+    (257, 700, 1000, 4097, 8193) or full ones (512), up to 16 strips at
+    M_MAX."""
+    args = [torch.as_tensor(x, device=card)
+            for x in _rect_case(M, 12, M, N)]
     before = sw_rect.launches
     got = sw_rect.sw_score_device(*args, GF, GE)
     assert sw_rect.launches == before + 1
     want = sw_rect.sw_score_torch(*args, GF, GE)
     assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16, 32])
+def test_k4_every_run_length(card, monkeypatch, R):
+    """K4 == its plain version at every run length the wrapper can pick,
+    forced with one ragged strip (four alignments per block), two strips
+    (M just above one strip, two alignments per block) and three strips
+    with a ragged top; windows longer than the strips' ring."""
+    assert R in sw_rect.R_RECT
+    strip = 32 * R
+    for M, W, P in ((strip - 3, 1, 4), (strip + 1, 2, 2),
+                    (2 * strip + 5, 3, 1)):
+        monkeypatch.setattr(sw_rect, "rect_config",
+                            lambda B, M_, W=W, P=P: (R, W, P))
+        args = [torch.as_tensor(x, device=card)
+                for x in _rect_case(R * 100 + W, 13, M, 150)]
+        got = sw_rect.sw_score_device(*args, GF, GE)
+        want = sw_rect.sw_score_torch(*args, GF, GE)
+        assert torch.equal(got.cpu(), want.cpu()), (R, M, W, P)
 
 
 @pytest.mark.cuda
