@@ -9,6 +9,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. build    -- build K1-K4 and the rate probe (nvcc, sm_90a, one nvcc per
                source) and the host C++ helpers (g++) in parallel from the
                sources in the checkout, with each kernel's ptxas report
+               and K3's per instantiation (registers, stack and spill
+               bytes; local memory on K3's register path fails the run)
    rates    -- the card's int32 instruction rates (csrc/int_rate.cu):
                add, max, the two DPX forms and the band cell as 7
                DPX-folded instructions; the per-cell time of the bounds
@@ -25,10 +27,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
                in-band cell, extend bits wherever their gap value is
                positive, and the walked traces
 5. k3       -- K3 (the sublane layout) against K1's plain version at the
-               k1 cases and the bench shape
+               k1 cases, the bench shape, and both edges of every register
+               bucket and of the first scratch widths (band widths 8k and
+               8k + 1 up to 129) at B 333 with padding rows
 6. grid     -- K1 and K3 timed side by side at B in {256, 512, 2048,
-               24576} x D in {23, 39, 127} (query bucket 128), both held
-               against the plain version; a record, it selects nothing
+               24576} x D in {23, 39, 127} and at D 1023 (B 256, 2048;
+               query bucket 128), both held against the plain version; a
+               record, it selects nothing
 7. k4       -- K4 (rectangle) against its plain version at M in {128, 512,
                2048} with windows up to 2 M, at M 1000 (eight strips, the
                top one ragged) and at M_MAX 16384 with a 64-column
@@ -171,9 +176,40 @@ def phase_build() -> None:
     ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "")
                     .splitlines() if "registers" in ln or "spill" in ln]
              for name in KERNELS}
+    k3 = k3_ptxas(_build.build_logs.get("sw_band_sub", ""))
     emit(phase="build", k1_nvcc_s=nvcc_s["sw_band"], nvcc_s=nvcc_s,
          host_gxx_s=round(host_s, 2), ptxas=ptxas["sw_band"],
-         ptxas_by_kernel=ptxas)
+         ptxas_by_kernel=ptxas, k3_ptxas=k3)
+    if "sw_band_sub" in _build.build_logs and len(k3) != 9:
+        raise SystemExit(f"K3's ptxas report names {len(k3)} kernels, not 9")
+    spilled = [r for r in k3 if not r["scratch"]
+               and (r["stack"] or r["spill_stores"] or r["spill_loads"])]
+    if spilled:
+        raise SystemExit(f"K3's register path uses local memory: {spilled}")
+
+
+def k3_ptxas(log: str) -> list:
+    """K3's ptxas report per instantiation (band offsets WP per register
+    chunk, scratch path or not): registers, stack frame and spill bytes.
+    Empty when the library was already built (no compiler output)."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*sw_band_sub_kernel"
+                      r"ILi(\d+)ELb([01])E", ln)
+        if m:
+            cur = dict(WP=int(m.group(1)), scratch=m.group(2) == "1")
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None and "registers" not in cur:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 # cycles of the spin that holds the stream busy before a device-time
@@ -602,30 +638,29 @@ def phase_grid(dev_info) -> list:
     e8_np, gf, ge = blosum_e8()
     e8 = torch.as_tensor(e8_np, device="cuda")
     rows = []
-    for D in (23, 39, 127):
-        for B in (256, 512, 2048, 24576):
-            args = [torch.as_tensor(x, device="cuda")
-                    for x in k1_inputs(rng, B, 128, D, e8_np.shape[0])]
-            r1 = k1_compare(*args, e8, D, gf, ge, dev_info, reps=5,
-                            plain_reps=0)
-            r3 = k1_compare(*args, e8, D, gf, ge, dev_info, reps=5,
-                            plain_reps=0, kernel="K3")
-            row = dict(B=B, D=D, N=128 + D, k1_ms=r1["ms"], k3_ms=r3["ms"],
-                       k1_device_ms=r1["device_ms"],
-                       k3_device_ms=r3["device_ms"],
-                       bound_ms=r1["bound_ms"],
-                       k3_over_k1=r3["ms"] / r1["ms"],
-                       k3_over_k1_device=r3["device_ms"] / r1["device_ms"],
-                       exact_equal=r1["exact_equal"] and r3["exact_equal"])
-            rows.append(row)
-            emit(phase="grid", **row)
-            if not row["exact_equal"]:
-                raise SystemExit(f"K1 or K3 disagrees with the plain version "
-                                 f"at B {B}, D {D}")
+    grid = [(B, D) for D in (23, 39, 127) for B in (256, 512, 2048, 24576)]
+    for B, D in grid + [(256, 1023), (2048, 1023)]:
+        args = [torch.as_tensor(x, device="cuda")
+                for x in k1_inputs(rng, B, 128, D, e8_np.shape[0])]
+        r1 = k1_compare(*args, e8, D, gf, ge, dev_info, reps=5, plain_reps=0)
+        r3 = k1_compare(*args, e8, D, gf, ge, dev_info, reps=5, plain_reps=0,
+                        kernel="K3")
+        row = dict(B=B, D=D, N=128 + D, k1_ms=r1["ms"], k3_ms=r3["ms"],
+                   k1_device_ms=r1["device_ms"], k3_device_ms=r3["device_ms"],
+                   bound_ms=r1["bound_ms"], k3_over_k1=r3["ms"] / r1["ms"],
+                   k3_over_k1_device=r3["device_ms"] / r1["device_ms"],
+                   exact_equal=r1["exact_equal"] and r3["exact_equal"])
+        rows.append(row)
+        emit(phase="grid", **row)
+        if not row["exact_equal"]:
+            raise SystemExit(f"K1 or K3 disagrees with the plain version at "
+                             f"B {B}, D {D}")
     return rows
 
 
 def phase_k3(dev_info) -> dict:
+    from lambda_tpu_torch.ops import sw_band
+
     e8_np, gf, ge = blosum_e8()
     dev = torch.device("cuda")
     e8 = torch.as_tensor(e8_np, device=dev)
@@ -649,11 +684,29 @@ def phase_k3(dev_info) -> dict:
                        e8, D, gf, ge, dev_info, reps=10, plain_reps=0,
                        kernel="K3")
     bench["rect_gcups"] = B * M * (M + D_true) / (bench["ms"] * 1e-3) / 1e9
-    emit(phase="k3", case="bench_shape", **bench)
+    emit(phase="k3", case="bench_shape",
+         WP_S_blocks=list(sw_band.sub_config(B, D)), **bench)
     if not bench["exact_equal"]:
         raise SystemExit("K3 disagrees with K1's plain version at the bench "
                          "shape")
-    return dict(bench=bench, worst=max(worst, bench["max_abs_err"]))
+    worst = max(worst, bench["max_abs_err"])
+    # both edges of every register bucket (W = D + 1 = 8k, 8k + 1), the
+    # first scratch widths (65; 128, 129), at a B that is no multiple of
+    # 32 with padding rows
+    for W in (8, 9, 16, 17, 24, 25, 32, 33, 40, 41, 48, 49, 56, 57, 64, 65,
+              128, 129):
+        q, s, d = k1_inputs(rng, 333, 64, W - 1, C)
+        d[[0, 100, 332]] = -1
+        r = k1_compare(*(torch.as_tensor(x, device=dev) for x in (q, s, d)),
+                       e8, W - 1, gf, ge, dev_info, reps=3, plain_reps=0,
+                       kernel="K3")
+        worst = max(worst, r["max_abs_err"])
+        emit(phase="k3", case=f"edge_W{W}",
+             WP_S_blocks=list(sw_band.sub_config(333, W - 1)), **r)
+        if not r["exact_equal"]:
+            raise SystemExit(f"K3 disagrees with K1's plain version at band "
+                             f"width {W}")
+    return dict(bench=bench, worst=worst)
 
 
 def k4_inputs(rng, B: int, M: int, C: int, N: int = 0):

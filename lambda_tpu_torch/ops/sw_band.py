@@ -10,8 +10,11 @@ kernels; each source's header gives the design and what bounds it:
   the host walk :func:`traceback_banded` reads its direction codes.
 * K3 (``_make_band_kernel``, pass 1 in the 'sublane' layout, chosen by
   ``LAMBDA_SWB_LAYOUT=sublane``, latched when the module is imported as
-  in JAX) -> ``csrc/sw_band_sub.cu``.  K3 computes K1's function without
-  X-drop, so its plain version is :func:`sw_band_score_torch` too.
+  in JAX) -> ``csrc/sw_band_sub.cu``: one thread per alignment, its band
+  in registers (:func:`sub_config` picks the register bucket or, for
+  wide bands, the global-scratch sweep).  K3 computes K1's function
+  without X-drop, so its plain version is :func:`sw_band_score_torch`
+  too.
 
 K1 and K2 share one core, ``csrc/band_warp.cuh``: a group of G lanes of
 one warp sweeps an alignment's band, each lane a run of R consecutive
@@ -346,21 +349,33 @@ def _check_shapes(kernel, q, s, d_rows, subst8):
                          f"subst8 {tuple(subst8.shape)} do not agree")
 
 
-def team_config(W: int, C: int):
-    """K3 and K4: one team of T threads (a power of two, at most 256) per
-    alignment, each thread a run of R cells of a W-cell column, 256 / T
-    alignments per block.  Returns (T, R, threads, shared bytes, needs
-    global scratch)."""
-    T = 1
-    while T < min(W, 256):
-        T *= 2
-    R = -(-W // T)
-    threads = max(T, 256)
-    fixed = 4 * (C * C + threads + threads // 32 + 1)
-    smem = fixed + 8 * T * R * (threads // T)
-    if smem <= _SMEM_MAX:
-        return T, R, threads, smem, False
-    return T, R, threads, fixed, True
+# K3 (csrc/sw_band_sub.cu): alignments (threads) per block, the widest
+# band held in registers (also the chunk of a wider band's scratch
+# sweep), window columns staged per refill
+SUB_THREADS = 128
+SUB_REG_MAX = 64
+SUB_CHUNK = 64
+
+
+def sub_config(B: int, D: int):
+    """(WP, S, blocks) for a K3 launch of B rows of band D: the band's
+    D + 1 offsets in registers, rounded up to a compiled bucket WP (a
+    multiple of 8 up to SUB_REG_MAX), S = 1; or, above SUB_REG_MAX, S
+    chunks of SUB_REG_MAX offsets in global scratch.  One thread per
+    alignment, SUB_THREADS per block."""
+    W = D + 1
+    blocks = -(-B // SUB_THREADS)
+    if W <= SUB_REG_MAX:
+        return _ceil(max(W, 1), 8), 1, blocks
+    return SUB_REG_MAX, -(-W // SUB_REG_MAX), blocks
+
+
+def _sub_smem(C: int) -> int:
+    """Dynamic shared bytes of a K3 block: the per-lane interleaved int8
+    tables (C * ceil(C / 4) * 128 bytes, rounded to 16), then per thread
+    two staging buffers of SUB_CHUNK + 16 bytes (query and window ranks)."""
+    return (_ceil(C * (-(-C // 4)) * 128, 16)
+            + 2 * SUB_THREADS * (SUB_CHUNK + 16))
 
 
 def _sw_band_score_sub_cuda(q, s, d_rows, subst8, D, gap_first,
@@ -372,22 +387,24 @@ def _sw_band_score_sub_cuda(q, s, d_rows, subst8, D, gap_first,
     C = subst8.shape[0]
     check_cuda_inputs("K3", q=q, s=s, d_rows=d_rows,
                       subst8=subst8)
+    smem = _sub_smem(C)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"K3: a {C} x {C} matrix needs {smem} bytes of "
+                         "shared memory")
     lib = _build.load("sw_band_sub")
     fn = lib.sw_band_sub_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty(B, dtype=torch.int32, device=q.device)
-    T, R, threads, smem, use_scratch = team_config(D + 1, C)
-    per_block = threads // T
-    rows = -(-B // per_block) * per_block
-    scratch = (torch.empty(2 * T * R * rows, dtype=torch.int32,
-                           device=q.device) if use_scratch else None)
+    WP, S, blocks = sub_config(B, D)
+    scratch = (torch.empty(3 * WP * S * blocks * SUB_THREADS,
+                           dtype=torch.int32, device=q.device)
+               if S > 1 else None)
     err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
              subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
-             T, R, threads,
-             scratch.data_ptr() if scratch is not None else None,
+             WP, S, scratch.data_ptr() if scratch is not None else None,
              smem, out.data_ptr(),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

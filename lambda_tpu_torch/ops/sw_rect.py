@@ -140,12 +140,15 @@ def sw_score_device(q: torch.Tensor, s: torch.Tensor, subst8: torch.Tensor,
     q: (B, M) query ranks, s: (B, N) window ranks (PAD = C - 1 trailing
     in both), subst8: (C, C) int8 with the PAD row/column last.  Returns
     (B,) int32.  CUDA tensors (int8 ranks) launch K4; CPU tensors run
-    :func:`sw_score_torch`."""
-    B = q.shape[0]
+    :func:`sw_score_torch`.  An empty query (M = 0) scores 0 on either
+    device without a launch, as the JAX package's all-PAD query does."""
+    B, M = q.shape
     C = subst8.shape[0]
     if s.shape[0] != B or subst8.shape != (C, C):
         raise ValueError(f"K4: shapes q {tuple(q.shape)} s {tuple(s.shape)} "
                          f"subst8 {tuple(subst8.shape)} do not agree")
+    if M == 0:
+        return torch.zeros(B, dtype=torch.int32, device=q.device)
     if q.is_cuda:
         return _sw_score_cuda(q, s, subst8, gap_first, gap_extend)
     return sw_score_torch(q, s, subst8, gap_first, gap_extend)

@@ -145,6 +145,40 @@ def test_k3_matches_plain_version(card, monkeypatch, D):
     assert int(got[3]) == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("WP,S", [(8, 1), (16, 1), (24, 1), (32, 1), (40, 1),
+                                  (48, 1), (56, 1), (64, 1), (64, 2),
+                                  (64, 3)])
+def test_k3_every_bucket(card, monkeypatch, WP, S):
+    """K3 == the plain version, exactly, at both edges of every register
+    bucket (D + 1 = WP - 7 and WP) and of the first scratch widths (65,
+    128; 129, 192), with a ragged B (not a multiple of 32 or of a block)
+    and padding rows among the rows."""
+    monkeypatch.setattr(sw_band, "_LAYOUT", "sublane")
+    lo = (S - 1) * WP + 1 if S > 1 else WP - 7
+    for W in (lo, WP * S):
+        assert sw_band.sub_config(77, W - 1)[:2] == (WP, S)
+        q, s, d, e8 = _case(WP * S + W, 77, 41 + W, W - 1)
+        d[[10, 40, 76]] = -1
+        args = [torch.as_tensor(x, device=card) for x in (q, s, d, e8)]
+        got = sw_band.sw_band_score_device(*args, W - 1, GF, GE)
+        want = sw_band.sw_band_score_torch(*args, W - 1, GF, GE)
+        assert torch.equal(got.cpu(), want.cpu()), W
+        assert int(got[40]) == 0 and int(got.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [39, 100])
+def test_k3_long_window(card, monkeypatch, D):
+    """A window of 333 columns, more than five staging tiles of 64, on
+    rows whose starts are not 16-byte aligned; K3 == the plain version."""
+    monkeypatch.setattr(sw_band, "_LAYOUT", "sublane")
+    args = [torch.as_tensor(x, device=card) for x in _case(D, 45, 333, D)]
+    got = sw_band.sw_band_score_device(*args, D, GF, GE)
+    want = sw_band.sw_band_score_torch(*args, D, GF, GE)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
 def _rect_case(seed, B, M, N, A=24):
     rng = np.random.default_rng(seed)
     subst = rng.integers(-4, 6, size=(A, A)).astype(np.int32)
@@ -176,6 +210,20 @@ def test_k4_matches_plain_version(card, M, N):
     assert sw_rect.launches == before + 1
     want = sw_rect.sw_score_torch(*args, GF, GE)
     assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_k4_empty_query_launches_nothing(card):
+    """M 0: zeros from the host entry and the device entry, no launch."""
+    q, s, e8 = _rect_case(5, 3, 4, 10)
+    before = sw_rect.launches
+    host = sw_rect.sw_score(q[:, :0], s, e8, GF, GE, device="cuda")
+    dev = sw_rect.sw_score_device(
+        *(torch.as_tensor(np.ascontiguousarray(x), device=card)
+          for x in (q[:, :0], s, e8)), GF, GE)
+    assert sw_rect.launches == before
+    assert list(host) == [0, 0, 0] and dev.is_cuda
+    assert torch.equal(dev.cpu(), torch.zeros(3, dtype=torch.int32))
 
 
 @pytest.mark.cuda

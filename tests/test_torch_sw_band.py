@@ -277,3 +277,123 @@ def test_warp_config(B, D, k1, k2):
     for (G, R, S), rs in ((k1, tsw.R_SCORE), (k2, tsw.R_DIRS)):
         assert G * R * S >= D + 1 and R in rs and G in (4, 8, 16, 32)
     assert k2[0] * k2[1] * k2[2] % 4 == 0
+
+
+@pytest.mark.parametrize("B,D,want", [
+    (1, 0, (8, 1, 1)), (128, 7, (8, 1, 1)), (129, 8, (16, 1, 2)),
+    (300, 39, (40, 1, 3)), (24576, 39, (40, 1, 192)), (530, 23, (24, 1, 5)),
+    (64, 55, (56, 1, 1)), (64, 56, (64, 1, 1)), (64, 63, (64, 1, 1)),
+    (64, 64, (64, 2, 1)), (40, 127, (64, 2, 1)), (40, 128, (64, 3, 1)),
+    (120, 1023, (64, 16, 1)), (40, 3000, (64, 47, 1))])
+def test_sub_config(B, D, want):
+    """K3's (WP, S, blocks): the band in a register bucket of 8 offsets up
+    to SUB_REG_MAX, above it chunks of SUB_REG_MAX in scratch; one thread
+    per row, SUB_THREADS per block; every bucket the rule picks is
+    compiled."""
+    WP, S, blocks = tsw.sub_config(B, D)
+    assert (WP, S, blocks) == want
+    assert WP * S >= D + 1 and WP % 8 == 0 and WP <= tsw.SUB_REG_MAX
+    assert S == 1 or WP == tsw.SUB_REG_MAX
+    assert blocks * tsw.SUB_THREADS >= B > (blocks - 1) * tsw.SUB_THREADS
+    assert tsw._sub_smem(25) <= 48 * 1024
+
+
+def _k3_tables(e8):
+    """The per-lane interleaved tables of K3's prologue: word x holds the
+    entries (q, 4 * s4 + r), r < 4, of lane x & 31, x >> 5 = q * Cw + s4."""
+    C = e8.shape[0]
+    Cw = -(-C // 4)
+    tbl = np.zeros(C * Cw * 128, np.int64)
+    for x in range(C * Cw * 32):
+        g = x >> 5
+        qv, s0 = g // Cw, 4 * (g % Cw)
+        for r in range(4):
+            if s0 + r < C:
+                tbl[4 * x + r] = e8[qv, s0 + r]
+    return tbl, 128 * Cw
+
+
+def _k3_model(q, s, d, e8, D, gf, ge, WP, S):
+    """csrc/sw_band_sub.cu, thread by thread: row b is thread b (lane
+    b % 32); the band's WP * S offsets swept upward in place in chunks of
+    WP, each chunk taking the old H, E and rank of the offset above it;
+    dead cells (k < kmin) with T forced to 0, the best taken over T, and
+    every score read from the lane's table at the kernel's address, which
+    must lie in the lane's own bank."""
+    B, N = q.shape
+    C = e8.shape[0]
+    tbl, qstride = _k3_tables(e8)
+    Wp = WP * S
+    neg = tsw.NEG32
+    out = np.zeros(B, np.int64)
+    for b in range(B):
+        if d[b] < 0:
+            continue
+        lane = b % 32
+        kmin = Wp - 1 - min(int(d[b]), D)
+        H, E, Q = [0] * Wp, [neg] * Wp, [(C - 1) * qstride] * Wp
+        best = 0
+        for j in range(N):
+            sv = int(s[b, j])
+            tcol = 4 * lane + 128 * (sv >> 2) + (sv & 3)
+            f = tp = neg
+            for k0 in range(0, Wp, WP):
+                if k0 + WP <= kmin:
+                    continue
+                top = k0 + WP
+                hu, eu, qu = ((H[top], E[top], Q[top]) if top < Wp
+                              else (0, neg, int(q[b, j]) * qstride))
+                for k in range(k0, top):
+                    hup, eup = (H[k + 1], E[k + 1]) if k + 1 < top else (hu,
+                                                                         eu)
+                    Q[k] = Q[k + 1] if k + 1 < top else qu
+                    addr = tcol + Q[k]
+                    assert (addr >> 2) & 31 == lane
+                    assert tbl[addr] == e8[Q[k] // qstride, sv]
+                    e = max(eup + ge, hup + gf)
+                    t = max(H[k] + int(tbl[addr]), e, 0) if k >= kmin else 0
+                    f = max(f + ge, tp + gf)
+                    H[k], E[k] = max(t, f), e
+                    best = max(best, t)
+                    tp = t
+        out[b] = best
+    return out
+
+
+def test_k3_tables_bank_per_lane():
+    """Every lane's copy holds subst8 at the kernel's address, and lane l
+    reads only bank l, for BLOSUM62's 25 ranks and for odd sizes."""
+    for C in (5, 25, 27):
+        e8 = (np.arange(C * C).reshape(C, C) % 255 - 127).astype(np.int8)
+        tbl, qstride = _k3_tables(e8)
+        assert len(tbl) == C * (-(-C // 4)) * 128
+        for lane in (0, 7, 31):
+            for qv in range(C):
+                for sv in range(C):
+                    addr = (4 * lane + 128 * (sv >> 2) + (sv & 3)
+                            + qv * qstride)
+                    assert tbl[addr] == e8[qv, sv]
+                    assert (addr >> 2) % 32 == lane
+
+
+@pytest.mark.parametrize("D,WP,S", [(0, 8, 1), (7, 8, 1), (39, 40, 1),
+                                    (33, 40, 1), (39, 16, 3), (70, 64, 2),
+                                    (127, 64, 2)])
+def test_k3_sweep_model_matches_plain_and_jax(monkeypatch, small_tiles, D,
+                                              WP, S):
+    """The model of K3's sweep (register bucket, padding offsets below the
+    band, scratch chunks) == the plain version == the JAX sublane kernel in
+    interpret mode, exactly, with padding rows and rows narrower than D."""
+    monkeypatch.setattr(jsw, "_LAYOUT", "sublane")
+    subst, e8, q, s, d = _case(900 + D + WP, 6, 24, 24 + D, D)
+    d[4] = -1
+    qp = np.full(s.shape, e8.shape[0] - 1, np.int8)
+    qp[:, :q.shape[1]] = q
+    got = _k3_model(qp, s, d, e8.astype(np.int64), D, GF, GE, WP, S)
+    plain = tsw.sw_band_score_torch(
+        *(torch.as_tensor(x) for x in (qp, s.astype(np.int8), d, e8)), D,
+        GF, GE).numpy()
+    np.testing.assert_array_equal(got, plain)
+    want = jsw.sw_band_score_pallas(q, s, d, e8, GF, GE, interpret=True)
+    np.testing.assert_array_equal(got, want)
+    assert got[4] == 0 and got.max() > 0

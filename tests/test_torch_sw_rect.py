@@ -70,6 +70,17 @@ def test_query_above_m_max_raises():
     assert sw_rect.M_MAX == sw_pallas.M_MAX
 
 
+def test_empty_query_scores_zero_as_jax():
+    """q of shape (3, 0): the JAX kernel pads M with PAD and returns zeros;
+    the port returns zeros without dispatching (no launch on the card)."""
+    subst, e8, q, s, qlen, slen = _case(8, 3, 12, 10)
+    q0 = np.zeros((3, 0), np.int32)
+    want = sw_pallas.sw_score_pallas(q0, s, e8, -11, -1, interpret=True)
+    got = sw_rect.sw_score(q0, s, e8, -11, -1, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32 and list(got) == [0, 0, 0]
+
+
 # ------------------------------------------------ the wavefront's schedule
 
 NEG, DEAD = -(2 ** 27), -(2 ** 20)
