@@ -41,14 +41,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
                (its launches counted); per case the kernel's (R, W, P),
                ms, device_ms, plain ms, bound, GCUPS and share of the
                bound
-8. golden   -- the port's CLI, mkindexp + searchp on the blastp fixtures,
-               byte-equal to tests/golden/blastp_m8.m8 and blastp_m9.m9;
-               again with LAMBDA_SW_TRACE=device (K2) and with the sublane
-               layout (K3)
+8. golden   -- the port's CLI, mkindex + search of all 13 cases of
+               tests/test_golden.py (BLASTP, BLASTN, BLASTX, TBLASTN,
+               TBLASTX, bisulfite; m8, m9, m0, SAM) on the card, each
+               byte-equal to tests/golden/, in three child processes at
+               once (``--golden-child``): default, LAMBDA_SW_TRACE=device
+               (K2) and LAMBDA_SWB_LAYOUT=sublane (K3, latched at import)
 9. card_cpu -- a 2e5-residue database and 256 queries searched with
                --device cuda and --device cpu: byte-equal m8; then the
                same in a child process under LAMBDA_SW_XDROP (latched at
-               import), K1 launched with X-drop, card m8 == CPU m8
+               import), K1 launched with X-drop, card m8 == CPU m8;
+               then BLASTN, BLASTX, TBLASTN, TBLASTX and bisulfite, each
+               on its own 2e5-character database with 128 queries, card
+               m8 == CPU m8, K1 held against its plain version on each
+               mode's first launch (BLASTN: C 6), and for bisulfite K1
+               and K2 on the first launch of each rev class
 10. scale   -- the main path: a 1e8-residue synthetic protein database
                (250,000 x 400 aa), index resident on the card, 1,024
                queries (70 % homolog fragments, 30 % random) through
@@ -64,6 +71,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
                spread of search seconds per mode; one more pass of the
                default batches under torch.profiler for the device's
                busy time
+11. scale_blastx -- BLASTX at full width on the same resident index
+               (reloaded once the BLASTP context is freed): 1,024 DNA
+               reads of 300 nt (70 % coding for 100-aa fragments of
+               database subjects with 12 substitutions, half on the
+               minus strand; 30 % random), six query frames; q/s, split,
+               K1 launches and K1 against its plain version, the share of
+               homolog reads hitting their source subject on a frame of
+               the right sign (>= 50 %), then one rerun each under the
+               device trace (K2) and the sublane layout (K3), byte-equal
 
 then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
 Kernel ``ms`` is the call as issued (CUDA events around the wrapper's
@@ -910,44 +926,152 @@ def reset_band_launches() -> None:
         setattr(sw_band, c, 0)
 
 
-def phase_golden(tmp: Path) -> dict:
-    """The blastp golden fixtures (the recipe of tests/test_golden.py),
-    once per switch."""
-    pdb, pq = tmp / "pdb.fasta", tmp / "pq.fasta"
+def revcomp(dna: str) -> str:
+    return dna.translate(str.maketrans("ACGTN", "TGCAN"))[::-1]
+
+
+def _codons() -> dict:
+    """Amino-acid letter -> its codons under the standard genetic code,
+    in the code table's order (DNA4 ranks ACGT, first base slowest)."""
+    from lambda_tpu_torch import alphabets as ab
+
+    aas = ab.decode(ab.CODON_TABLE_STD, ab.AMINO_ACID)
+    out: dict = {}
+    for i, aa in enumerate(aas):
+        out.setdefault(aa, []).append(
+            "ACGT"[i // 16] + "ACGT"[(i // 4) % 4] + "ACGT"[i % 4])
+    return out
+
+
+def rev_translate(prot: str) -> str:
+    """The first codon of each residue (the recipe of tests/test_e2e.py)."""
+    codons = _codons()
+    return "".join(codons[c][0] for c in prot)
+
+
+# the cases of tests/test_golden.py: name, mkindex and search subcommand,
+# output suffix
+GOLDEN_CASES = [
+    ("blastp_m8", "mkindexp", "searchp", ".m8"),
+    ("blastp_m9", "mkindexp", "searchp", ".m9"),
+    ("blastp_m0", "mkindexp", "searchp", ".m0"),
+    ("blastp_sam", "mkindexp", "searchp", ".sam"),
+    ("blastn_m8", "mkindexn", "searchn", ".m8"),
+    ("blastn_m0", "mkindexn", "searchn", ".m0"),
+    ("blastn_sam", "mkindexn", "searchn", ".sam"),
+    ("blastx_m8", "mkindexp", "searchp", ".m8"),
+    ("blastx_m0", "mkindexp", "searchp", ".m0"),
+    ("tblastn_m8", "mkindexp", "searchp", ".m8"),
+    ("tblastn_m0", "mkindexp", "searchp", ".m0"),
+    ("tblastx_m0", "mkindexp", "searchp", ".m0"),
+    ("bs_m8", "mkindexbs", "searchbs", ".m8"),
+]
+
+
+def golden_fixtures(d: Path) -> dict:
+    """The inputs of tests/test_golden.py (its ``_fixtures`` recipe, the
+    same bytes): {case: (database, queries)}."""
+    rng = np.random.default_rng(1234)
+    pdb, pq = d / "pdb.fasta", d / "pq.fasta"
     write_fasta(pdb, [("GYRA_ECOLI gyrase subunit A", GYRA),
                       ("SECOND_PROT some other protein",
                        GYRA[200:420] + GYRA[10:90])])
     frag2 = GYRA[200:280]
     write_fasta(pq, [("pq1", GYRA[50:130]),
                      ("pq2", frag2[:30] + "AG" + frag2[32:])])
-    lit = tmp / "pdb.lit"
-    run_cli("mkindexp", "-d", pdb, "-i", lit, "-v", "0")
-    counts = {}
-    for mode, counter in MODES.items():
-        reset_band_launches()
-        res = {}
-        with switched(mode):
-            for suffix in (".m8", ".m9"):
-                out = tmp / f"golden_{mode}{suffix}"
-                run_cli("searchp", "-q", pq, "-i", lit, "-o", out,
-                        "--version-to-outputfile", "0", "-v", "0",
-                        "--device", "cuda")
-                got = re.sub(rb"(Database: ).*", rb"\1<path>",
-                             out.read_bytes())
-                want = (REPO / "tests" / "golden"
-                        / f"blastp_m{suffix[-1]}{suffix}").read_bytes()
-                res[suffix] = got == want
-        n = band_launches()
-        counts[mode] = n[counter]
-        emit(phase="golden", mode=mode, m8_equal=res[".m8"],
-             m9_equal=res[".m9"], k1_launches=n["launches"],
-             k2_launches=n["launches_dirs"], k3_launches=n["launches_sub"])
-        if not all(res.values()):
-            raise SystemExit(f"golden outputs differ ({mode})")
-        if n[counter] <= 0:
-            raise SystemExit(f"the golden search ({mode}) launched its "
-                             "kernel no time")
+    ndbseq = "".join(rng.choice(list("ACGT"), 600))
+    ndb, nq = d / "ndb.fasta", d / "nq.fasta"
+    write_fasta(ndb, [("nsubj1", ndbseq)])
+    write_fasta(nq, [("nq_plus", ndbseq[100:170]),
+                     ("nq_minus", revcomp(ndbseq[300:370]))])
+    xq = d / "xq.fasta"
+    write_fasta(xq, [("xq1", "GG" + rev_translate(GYRA[30:90]))])
+    tdb, tq = d / "tdb.fasta", d / "tq.fasta"
+    write_fasta(tdb, [("GYRA_DNA", rev_translate(GYRA[:160]))])
+    write_fasta(tq, [("tq1", GYRA[20:100])])
+    xxq = d / "xxq.fasta"
+    write_fasta(xxq, [("xxq1", rev_translate(GYRA[40:100]))])
+    bs_g = "".join(rng.choice(list("ACGT"), 400))
+    bdb, bq = d / "bdb.fasta", d / "bq.fasta"
+    write_fasta(bdb, [("chrB", bs_g)])
+    write_fasta(bq, [("bs_read", bs_g[100:180].replace("C", "T"))])
+    out = {c: (pdb, pq) for c in ("blastp_m8", "blastp_m9", "blastp_m0",
+                                  "blastp_sam")}
+    out.update({c: (ndb, nq) for c in ("blastn_m8", "blastn_m0",
+                                       "blastn_sam")})
+    out.update(blastx_m8=(pdb, xq), blastx_m0=(pdb, xq),
+               tblastn_m8=(tdb, tq), tblastn_m0=(tdb, tq),
+               tblastx_m0=(tdb, xxq), bs_m8=(bdb, bq))
+    return out
+
+
+# the environment of each golden child process: the sublane layout is
+# latched when ops/sw_band.py is imported
+GOLDEN_ENV = {"default": {}, "device_trace": {"LAMBDA_SW_TRACE": "device"},
+              "sublane": {"LAMBDA_SWB_LAYOUT": "sublane"}}
+
+
+def phase_golden(tmp: Path) -> dict:
+    """All 13 golden cases on the card, once per switch: one child
+    process per switch (``--golden-child``), the three at once.  Returns
+    each switch's launches of its kernel."""
+    procs = {}
+    for mode, env in GOLDEN_ENV.items():
+        d = tmp / f"golden_{mode}"
+        d.mkdir()
+        procs[mode] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--golden-child",
+             mode, str(d)], env=dict(os.environ, **env),
+            stdout=subprocess.PIPE, text=True)
+    counts, failed = {}, []
+    for mode, proc in procs.items():
+        out, _ = proc.communicate()
+        for line in out.splitlines():
+            print(line, flush=True)
+            if line.startswith("{"):
+                rec = json.loads(line)
+                counts[mode] = rec.get(MODES[mode], 0)
+        if proc.returncode != 0:
+            failed.append((mode, proc.returncode))
+    if failed:
+        raise SystemExit(f"golden child processes failed: {failed}")
     return counts
+
+
+def golden_child(mode: str, d: Path) -> None:
+    """One switch's golden run: mkindex and search of every case through
+    the port's CLI on the card, each output byte-equal to tests/golden/,
+    and the switch's kernel launched."""
+    from lambda_tpu_torch.ops import sw_band
+
+    fixtures = golden_fixtures(d)
+    lits: dict = {}
+    for name, mk, _, _ in GOLDEN_CASES:
+        db = fixtures[name][0]
+        if (db, mk) not in lits:
+            lits[(db, mk)] = d / f"{db.stem}_{mk}.lit"
+            run_cli(mk, "-d", db, "-i", lits[(db, mk)], "-v", "0")
+    reset_band_launches()                  # this path starts
+    equal = {}
+    for name, mk, se, suffix in GOLDEN_CASES:
+        db, q = fixtures[name]
+        out = d / f"{name}{suffix}"
+        run_cli(se, "-q", q, "-i", lits[(db, mk)], "-o", out,
+                "--version-to-outputfile", "0", "-v", "0",
+                "--device", "cuda")
+        got = re.sub(rb"(Database: ).*", rb"\1<path>", out.read_bytes())
+        equal[name] = got == (REPO / "tests" / "golden"
+                              / f"{name}{suffix}").read_bytes()
+    n = band_launches()                    # ... and ends
+    emit(phase="golden", mode=mode, cases=len(equal),
+         all_equal=all(equal.values()), equal=equal,
+         layout=sw_band._LAYOUT, **n)
+    if not all(equal.values()):
+        raise SystemExit(f"golden outputs differ ({mode}): "
+                         f"{[k for k, v in equal.items() if not v]}")
+    if n[MODES[mode]] <= 0:
+        raise SystemExit(f"the golden searches ({mode}) launched their "
+                         "kernel no time")
 
 
 def synthetic_db(rng, n_subj: int, length: int):
@@ -1019,6 +1143,199 @@ def phase_card_cpu(tmp: Path, tag: str = "") -> None:
         raise SystemExit("the X-drop run did not launch K1 with X-drop")
 
 
+def coding_dna(rng, prot: str) -> str:
+    """A DNA sequence coding for ``prot`` under the standard genetic code,
+    a random synonymous codon per residue."""
+    codons = _codons()
+    return "".join(codons[c][k % len(codons[c])]
+                   for c, k in zip(prot, rng.integers(0, 6, len(prot))))
+
+
+def blastx_reads(rng, db, n_q: int, aa: int = 100):
+    """DNA reads of 3 * ``aa`` nt: 70 % reverse translations (a random
+    synonymous codon per residue, standard code) of ``aa``-residue
+    fragments of database subjects carrying aa // 8 substitutions, every
+    other one reverse-complemented, named after their source subject and
+    strand; 30 % random DNA."""
+    letters = np.frombuffer(AA.encode(), np.uint8)
+    nt = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for i in range(n_q):
+        if i % 10 < 7:
+            src = int(rng.integers(0, len(db)))
+            st = int(rng.integers(0, db.shape[1] - aa))
+            frag = db[src, st:st + aa].copy()
+            frag[rng.integers(0, aa, aa // 8)] = \
+                letters[rng.integers(0, 20, aa // 8)]
+            dna = coding_dna(rng, frag.tobytes().decode())
+            strand = "-" if i % 2 else "+"
+            recs.append((f"hom{i}_s{src}_{strand}",
+                         revcomp(dna) if i % 2 else dna))
+        else:
+            recs.append((f"rnd{i}",
+                         nt[rng.integers(0, 4, 3 * aa)].tobytes().decode()))
+    return recs
+
+
+# the card_cpu phase's other modes: mkindex and search subcommands
+CARD_CPU_MODES = {"blastn": ("mkindexn", "searchn"),
+                  "blastx": ("mkindexp", "searchp"),
+                  "tblastn": ("mkindexp", "searchp"),
+                  "tblastx": ("mkindexp", "searchp"),
+                  "bisulfite": ("mkindexbs", "searchbs")}
+
+
+def mode_inputs(mode: str, n_q: int = 128):
+    """(database records, query records) of one mode's card_cpu run: a
+    database of 2 x 10^5 characters (residues for BLASTX, nucleotides
+    for the DNA databases) and ``n_q`` queries, 70 % made from seeded
+    fragments of the database and 30 % random, both strands."""
+    rng = np.random.default_rng(
+        {"blastn": 21, "blastx": 22, "tblastn": 23, "tblastx": 23,
+         "bisulfite": 24}[mode])
+    nt = np.frombuffer(b"ACGT", np.uint8)
+    if mode == "blastx":
+        db = synthetic_db(rng, 500, 400)
+        return ([(f"s{i}", r.tobytes().decode()) for i, r in enumerate(db)],
+                blastx_reads(rng, db, n_q))
+    if mode in ("tblastn", "tblastx"):
+        # 500 coding sequences of 133 codons, every other one on the
+        # minus strand; one database for both modes
+        prot = synthetic_db(rng, 500, 133)
+        dna = [coding_dna(rng, r.tobytes().decode()) for r in prot]
+        db = [(f"d{i}", revcomp(x) if i % 2 else x)
+              for i, x in enumerate(dna)]
+        rng = np.random.default_rng(25 if mode == "tblastn" else 26)
+        if mode == "tblastx":
+            return db, blastx_reads(rng, prot, n_q, aa=60)
+        recs = query_mix(rng, prot, n_q)
+        return db, [(i, q[:60]) for i, q in recs]
+    genome = nt[rng.integers(0, 4, (500, 400))]
+    db = [(f"chr{i}", r.tobytes().decode()) for i, r in enumerate(genome)]
+    recs = []
+    for i in range(n_q):
+        if i % 10 >= 7:
+            recs.append((f"rnd{i}", nt[rng.integers(0, 4, 150)].tobytes()
+                         .decode()))
+            continue
+        src = int(rng.integers(0, 500))
+        st = int(rng.integers(0, 250))
+        frag = genome[src, st:st + 150].copy()
+        minus = i % 2 == 1
+        if mode == "bisulfite":      # C->T (plus) or G->A (minus) at 70 %
+            a, b = (b"G", b"A") if minus else (b"C", b"T")
+            frag[(frag == a[0]) & (rng.random(150) < 0.7)] = b[0]
+        frag[rng.integers(0, 150, 6)] = nt[rng.integers(0, 4, 6)]
+        seq = frag.tobytes().decode()
+        recs.append((f"hom{i}_chr{src}", revcomp(seq) if minus else seq))
+    return db, recs
+
+
+@contextlib.contextmanager
+def capture(wrapper: str, keep):
+    """Clones of the inputs of the launches of ``sw_band.<wrapper>`` that
+    ``keep(args, captured)`` selects; the launches themselves run."""
+    from lambda_tpu_torch.ops import sw_band
+
+    launch = getattr(sw_band, wrapper)
+    captured: list = []
+
+    def hook(*a):
+        if keep(a, captured):
+            captured.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a))
+        return launch(*a)
+
+    setattr(sw_band, wrapper, hook)
+    try:
+        yield captured
+    finally:
+        setattr(sw_band, wrapper, launch)
+
+
+def first(n: int):
+    return lambda a, captured: len(captured) < n
+
+
+def one_per_matrix(a, captured) -> bool:
+    """The first launch of each matrix (bisulfite: each rev class)."""
+    return not any(torch.equal(a[3], c[3]) for c in captured)
+
+
+def phase_card_cpu_modes(tmp: Path, dev_info) -> dict:
+    """BLASTN, BLASTX, TBLASTN, TBLASTX and bisulfite, each on its own
+    2 x 10^5-character database with 128 queries, searched with --device
+    cuda and --device cpu: byte-equal m8.  K1 is held against its plain
+    version on BLASTN's first launch (C 6: DNA5 and PAD) and on the
+    first launch of the other modes; for bisulfite K1 and K2 on the first
+    launch of each rev class (forward and reverse matrix), K2 from a
+    device-trace run whose m8 must equal the default run's.  Returns each
+    mode's K1 launches."""
+    launches = {}
+    for mode, (mk, se) in CARD_CPU_MODES.items():
+        db, qs = mode_inputs(mode)
+        write_fasta(tmp / f"{mode}.fasta", db)
+        write_fasta(tmp / f"{mode}_q.fasta", qs)
+        lit = tmp / f"{mode}.lit"
+        run_cli(mk, "-d", tmp / f"{mode}.fasta", "-i", lit, "-v", "0")
+        keep = one_per_matrix if mode == "bisulfite" else first(1)
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = tmp / f"{mode}_{dev}.m8"
+            with capture("_sw_band_score_cuda", keep) as k1_in:
+                reset_band_launches()          # this path starts
+                t0 = time.perf_counter()
+                run_cli(se, "-q", tmp / f"{mode}_q.fasta", "-i", lit,
+                        "-o", out, "-v", "0", "--device", dev)
+                secs[dev] = round(time.perf_counter() - t0, 3)
+                n = band_launches()            # ... and ends
+            outs[dev] = out.read_bytes()
+            if dev == "cuda":
+                launches[mode] = n["launches"]
+                k1_cuda = k1_in
+        same = outs["cuda"] == outs["cpu"]
+        cmp = [k1_compare(*x[:7], dev_info, reps=3, plain_reps=0)
+               for x in k1_cuda]
+        k2 = []
+        trace_same = None
+        if mode == "bisulfite":
+            out = tmp / f"{mode}_cuda_trace.m8"
+            with capture("_sw_band_align_cuda", one_per_matrix) as k2_in, \
+                    switched("device_trace"):
+                run_cli(se, "-q", tmp / f"{mode}_q.fasta", "-i", lit,
+                        "-o", out, "-v", "0", "--device", "cuda")
+            trace_same = out.read_bytes() == outs["cuda"]
+            k2 = [k2_compare(*x, dev_info) for x in k2_in]
+        emit(phase="card_cpu_modes", mode=mode, subcommands=[mk, se],
+             db_chars=sum(len(x) for _, x in db), queries=len(qs),
+             m8_equal=same, m8_lines=outs["cuda"].count(b"\n"),
+             seconds=secs, k1_launches=launches[mode],
+             alphabet_size=[int(x[3].shape[0]) for x in k1_cuda],
+             device_trace_m8_equal=trace_same,
+             k1_compare=[{k: c[k] for k in ("B", "N", "D", "exact_equal",
+                                            "ms", "plain_ms", "bound_ms")}
+                         for c in cmp],
+             k2_compare=[{k: c[k] for k in ("B", "N", "D", "exact_equal",
+                                            "ms", "plain_ms", "bound_ms")}
+                         for c in k2])
+        if not same or not outs["cuda"].strip():
+            raise SystemExit(f"{mode}: card and CPU m8 differ (or are "
+                             "empty)")
+        if launches[mode] <= 0:
+            raise SystemExit(f"{mode}: the card search launched K1 no time")
+        if not all(c["exact_equal"] for c in cmp + k2):
+            raise SystemExit(f"{mode}: a kernel disagrees with its plain "
+                             "version")
+        if mode == "blastn" and (not cmp
+                                 or int(k1_cuda[0][3].shape[0]) != 6):
+            raise SystemExit("blastn: K1 was not held at C 6")
+        if mode == "bisulfite" and (len(cmp) != 2 or len(k2) != 2
+                                    or not trace_same):
+            raise SystemExit("bisulfite: K1 and K2 were not held on both "
+                             "rev classes, or the device-trace m8 differs")
+    return launches
+
+
 def phase_card_cpu_xdrop(tmp: Path) -> None:
     """phase_card_cpu again in a child process with LAMBDA_SW_XDROP set:
     ops/sw_band.py latches the variable when it is imported."""
@@ -1029,30 +1346,20 @@ def phase_card_cpu_xdrop(tmp: Path) -> None:
         raise SystemExit(f"the card_cpu X-drop run exited {r.returncode}")
 
 
-def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
-                n_q=1024) -> dict:
-    from lambda_tpu_torch import options as opt_mod
+PHASE_KEYS = ("seed", "locate", "merge", "extend", "extend_trace", "write")
+
+
+def main_search(opt) -> dict:
+    """run_search on the card, with the hooks of this script only: the
+    resident bytes and the time at which SearchContext is ready (index
+    read and uploaded), the context itself (for the reruns), and the
+    inputs of the first three K1 launches.  Its K1 launches are counted
+    from 0."""
     from lambda_tpu_torch.ops import sw_band
     from lambda_tpu_torch.search import pipeline
 
-    rng = np.random.default_rng(2024)
-    t0 = time.perf_counter()
-    db = synthetic_db(rng, n_subj, length)
-    write_fasta(tmp / "big.fasta",
-                [(f"s{i}", r.tobytes().decode()) for i, r in enumerate(db)])
-    write_fasta(tmp / "big_q.fasta", query_mix(rng, db, n_q))
-    gen_s = time.perf_counter() - t0
-    del db
-    lit = tmp / "big.lit"
-    t0 = time.perf_counter()
-    run_cli("mkindexp", "-d", tmp / "big.fasta", "-i", lit, "-v", "0")
-    build_s = time.perf_counter() - t0
-
-    # hooks of this script only: the resident bytes after the index
-    # upload, and the first pass-1 launches' inputs for the comparison
-    rec: dict = {"k1_inputs": []}
+    rec: dict = {}
     init = pipeline.SearchContext.__init__
-    k1 = sw_band._sw_band_score_cuda
 
     def init_hook(self, *a, **kw):
         init(self, *a, **kw)
@@ -1061,28 +1368,52 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
         rec["ready"] = time.perf_counter()
         rec["ctx"] = self
 
-    def k1_hook(*a):
-        if len(rec["k1_inputs"]) < 3:
-            rec["k1_inputs"].append(tuple(x.clone() if torch.is_tensor(x)
-                                          else x for x in a))
-        return k1(*a)
-
     pipeline.SearchContext.__init__ = init_hook
-    sw_band._sw_band_score_cuda = k1_hook
-    opt = opt_mod.make_search_options(
-        opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
-        index_file=str(lit), output=str(tmp / "big.m8"), verbosity=0)
     try:
-        torch.cuda.reset_peak_memory_stats()
-        reset_band_launches()                      # the main path starts
-        t0 = time.perf_counter()
-        stats = pipeline.run_search(opt, device="cuda")
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        launches = sw_band.launches                # ... and ends
+        with capture("_sw_band_score_cuda", first(3)) as k1_in:
+            torch.cuda.reset_peak_memory_stats()
+            reset_band_launches()                  # the main path starts
+            t0 = time.perf_counter()
+            rec["stats"] = pipeline.run_search(opt, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["launches"] = sw_band.launches     # ... and ends
     finally:
         pipeline.SearchContext.__init__ = init
-        sw_band._sw_band_score_cuda = k1
+    rec.update(k1_inputs=k1_in, load_s=rec["ready"] - t0,
+               search_s=t1 - rec["ready"], total_s=t1 - t0)
+    return rec
+
+
+def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
+                n_q=1024) -> dict:
+    from lambda_tpu_torch import options as opt_mod
+
+    rng = np.random.default_rng(2024)
+    t0 = time.perf_counter()
+    db = synthetic_db(rng, n_subj, length)
+    write_fasta(tmp / "big.fasta",
+                [(f"s{i}", r.tobytes().decode()) for i, r in enumerate(db)])
+    write_fasta(tmp / "big_q.fasta", query_mix(rng, db, n_q))
+    # the scale_blastx phase's reads, from the same subjects
+    write_fasta(tmp / "big_x.fasta",
+                blastx_reads(np.random.default_rng(2025), db, n_q))
+    gen_s = time.perf_counter() - t0
+    del db
+    lit = tmp / "big.lit"
+    t0 = time.perf_counter()
+    run_cli("mkindexp", "-d", tmp / "big.fasta", "-i", lit, "-v", "0")
+    build_s = time.perf_counter() - t0
+
+    def make_opt(out: Path):
+        return opt_mod.make_search_options(
+            opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
+            index_file=str(lit), output=str(out), verbosity=0)
+
+    opt = make_opt(tmp / "big.m8")
+    rec = main_search(opt)
+    stats, launches, search_s = rec["stats"], rec["launches"], \
+        rec["search_s"]
 
     hits: dict = {}
     for line in (tmp / "big.m8").read_text().splitlines():
@@ -1096,7 +1427,6 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
            for x in rec["k1_inputs"]]
     want_m8 = (tmp / "big.m8").read_bytes()
-    search_s = t1 - rec["ready"]
     # RERUN_ROUNDS rounds of all three modes on the same resident index:
     # each switch's run, and the spread of the host-bound search; the
     # kernels are held against their plain versions in the first round
@@ -1108,8 +1438,8 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     for rnd in range(RERUN_ROUNDS):
         for mode in MODES:
             check = rnd == 0 and mode != "default"
-            r = rerun_search(rec["ctx"], tmp, mode, want_m8, dev_info, n_q,
-                             rnd, check)
+            r = rerun_search(rec["ctx"], make_opt, tmp / f"big_{mode}.m8",
+                             mode, want_m8, dev_info, n_q, rnd, check)
             if check:
                 reruns[mode] = r
             for k in ("search_s", "time_extend_trace_s"):
@@ -1124,13 +1454,12 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          # load = index read + upload (SearchContext); search = the
          # batches after it, on the resident index
-         load_s=round(rec["ready"] - t0, 3),
+         load_s=round(rec["load_s"], 3),
          search_s=round(search_s, 3),
          queries_per_s=round(n_q / search_s, 2),
-         queries_per_s_with_load=round(n_q / (t1 - t0), 2),
-         phase_s={k: round(getattr(stats, f"time_{k}"), 3) for k in
-                  ("seed", "locate", "merge", "extend", "extend_trace",
-                   "write")},
+         queries_per_s_with_load=round(n_q / rec["total_s"], 2),
+         phase_s={k: round(getattr(stats, f"time_{k}"), 3)
+                  for k in PHASE_KEYS},
          k1_launches=launches, ext_rows=stats.ext_dispatch_rows,
          homolog_queries=n_hom, homolog_hit_source=found,
          homolog_share=round(share, 4),
@@ -1152,63 +1481,125 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     return dict(launches=launches, cmp=cmp, reruns=reruns)
 
 
-def rerun_search(ctx, tmp: Path, mode: str, want_m8: bytes, dev_info,
-                 n_q: int, rnd: int, check: bool) -> dict:
-    """The scale phase's queries again through run_search on the SAME
+def phase_scale_blastx(tmp: Path, dev_info, n_q=1024) -> dict:
+    """BLASTX at full width on the scale phase's resident 10^8-residue
+    index: 1,024 DNA reads of 300 nt (blastx_reads, numpy seed 2025) with
+    default searchp options; the program is BLASTX with six query frames
+    because the reads are DNA.  q/s, the per-phase split, K1's launches
+    and K1 against its plain version on the first three launches' inputs,
+    the share of homolog reads that hit their source subject on a query
+    frame of the right sign (>= 50 %), then one rerun each under
+    LAMBDA_SW_TRACE=device and the sublane layout, each m8 byte-equal to
+    the default run's and K2 / K3 held against their plain version."""
+    import gc
+
+    from lambda_tpu_torch import options as opt_mod
+
+    gc.collect()                       # the BLASTP context is gone
+    torch.cuda.empty_cache()
+
+    def make_opt(out: Path):
+        return opt_mod.make_search_options(
+            opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_x.fasta"),
+            index_file=str(tmp / "big.lit"), output=str(out), verbosity=0,
+            columns=["std", "qframe"])
+
+    rec = main_search(make_opt(tmp / "big_x.m8"))
+    ctx, stats = rec.pop("ctx"), rec["stats"]
+    hits: dict = {}
+    for line in (tmp / "big_x.m8").read_text().splitlines():
+        f = line.split("\t")
+        hits.setdefault(f[0], set()).add(
+            (f[1], "-" if f[12].startswith("-") else "+"))
+    n_hom = sum(1 for i in range(n_q) if i % 10 < 7)
+    found = 0
+    for qid, subs in hits.items():
+        if qid.startswith("hom"):
+            _, src, strand = qid.split("_")
+            found += (src, strand) in subs
+    share = found / n_hom
+    cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
+           for x in rec["k1_inputs"]]
+    want_m8 = (tmp / "big_x.m8").read_bytes()
+    reruns = {mode: rerun_search(ctx, make_opt, tmp / f"big_x_{mode}.m8",
+                                 mode, want_m8, dev_info, n_q, 0, True,
+                                 phase="scale_blastx_rerun")
+              for mode in ("device_trace", "sublane")}
+    program = (ctx.program.value, ctx.qry_num_frames)
+    emit(phase="scale_blastx", program=program[0],
+         query_frames=program[1], db_residues=int(
+             ctx.idx.db_total_length), queries=n_q,
+         resident_bytes=rec["resident_bytes"],
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         load_s=round(rec["load_s"], 3), search_s=round(rec["search_s"], 3),
+         queries_per_s=round(n_q / rec["search_s"], 2),
+         queries_per_s_with_load=round(n_q / rec["total_s"], 2),
+         phase_s={k: round(getattr(stats, f"time_{k}"), 3)
+                  for k in PHASE_KEYS},
+         k1_launches=rec["launches"], ext_rows=stats.ext_dispatch_rows,
+         m8_lines=want_m8.count(b"\n"), homolog_queries=n_hom,
+         homolog_hit_source_strand=found, homolog_share=round(share, 4),
+         k1_main_path_compare=[{k: c[k] for k in
+                                ("B", "N", "D", "exact_equal", "ms",
+                                 "device_ms", "plain_ms", "bound_ms")}
+                               for c in cmp])
+    del ctx
+    if program != ("blastx", 6):
+        raise SystemExit("the DNA reads did not run as BLASTX with six "
+                         "query frames")
+    if rec["launches"] <= 0:
+        raise SystemExit("the BLASTX search launched K1 no time")
+    if share < 0.5:
+        raise SystemExit(f"only {share:.2%} of homolog reads hit their "
+                         "source subject on a frame of the right sign")
+    if not all(c["exact_equal"] for c in cmp):
+        raise SystemExit("K1 disagrees with its plain version on the BLASTX "
+                         "search's inputs")
+    return dict(launches=rec["launches"], cmp=cmp, reruns=reruns)
+
+
+def rerun_search(ctx, make_opt, out: Path, mode: str, want_m8: bytes,
+                 dev_info, n_q: int, rnd: int, check: bool,
+                 phase: str = "scale_rerun") -> dict:
+    """A scale search's queries again through run_search on the SAME
     resident index (SearchContext is handed the loaded context), with the
     ``mode``'s switch on: its kernel's launches counted from 0 and the m8
-    held byte-equal to the default run's.  With ``check`` the kernel is
-    also held against its plain version on its first three launches'
+    (written to ``out``; ``make_opt(out)`` gives the options) held
+    byte-equal to the default run's.  With ``check`` the kernel is also
+    held against its plain version on its first three launches'
     inputs."""
-    from lambda_tpu_torch import options as opt_mod
-    from lambda_tpu_torch.ops import sw_band
     from lambda_tpu_torch.search import pipeline
 
     counter = MODES[mode]
     wrapper = {"default": "_sw_band_score_cuda",
                "device_trace": "_sw_band_align_cuda",
                "sublane": "_sw_band_score_sub_cuda"}[mode]
-    launch = getattr(sw_band, wrapper)
-    captured: list = []
-
-    def hook(*a):
-        if check and len(captured) < 3:
-            captured.append(tuple(x.clone() if torch.is_tensor(x) else x
-                                  for x in a))
-        return launch(*a)
-
-    out = tmp / f"big_{mode}.m8"
-    opt = opt_mod.make_search_options(
-        opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
-        index_file=str(tmp / "big.lit"), output=str(out), verbosity=0)
     cls = pipeline.SearchContext
     pipeline.SearchContext = lambda *a, **kw: ctx      # the resident index
-    setattr(sw_band, wrapper, hook)
     try:
-        with switched(mode):
+        with switched(mode), capture(wrapper, first(3 if check else 0)) \
+                as captured:
             reset_band_launches()                  # this path starts
             t0 = time.perf_counter()
-            stats = pipeline.run_search(opt, device="cuda")
+            stats = pipeline.run_search(make_opt(out), device="cuda")
             torch.cuda.synchronize()
             search_s = time.perf_counter() - t0
             n = band_launches()                    # ... and ends
     finally:
         pipeline.SearchContext = cls
-        setattr(sw_band, wrapper, launch)
     same = out.read_bytes() == want_m8
     if mode == "device_trace":
         cmp = [k2_compare(*x, dev_info) for x in captured]
     else:
         cmp = [k1_compare(*x, dev_info, reps=3, plain_reps=0, kernel="K3")
                for x in captured]
-    emit(phase="scale_rerun", mode=mode, round=rnd, m8_equal_default=same,
+    emit(phase=phase, mode=mode, round=rnd, m8_equal_default=same,
          search_s=round(search_s, 3),
          queries_per_s=round(n_q / search_s, 2),
          time_extend_s=round(stats.time_extend, 3),
          time_extend_trace_s=round(stats.time_extend_trace, 3),
-         phase_s={k: round(getattr(stats, f"time_{k}"), 3) for k in
-                  ("seed", "locate", "merge", "extend", "extend_trace",
-                   "write")},
+         phase_s={k: round(getattr(stats, f"time_{k}"), 3)
+                  for k in PHASE_KEYS},
          k1_launches=n["launches"], k2_launches=n["launches_dirs"],
          k3_launches=n["launches_sub"],
          main_path_compare=[{k: c[k] for k in
@@ -1261,6 +1652,15 @@ def profile_search(ctx, opt) -> dict:
                               e.count] for e in top])
 
 
+def cmp_sums(cmp, launches) -> dict:
+    """A path's launches and the sums over its timed launches."""
+    return dict(launches=launches, launches_timed=len(cmp),
+                exact_equal=all(c["exact_equal"] for c in cmp),
+                max_abs_err=max([c["max_abs_err"] for c in cmp] or [0]),
+                **{k: sum(c[k] for c in cmp) for k in
+                   ("ms", "device_ms", "plain_ms", "bound_ms")})
+
+
 def kernel_entry(name, source, replaces, launches, worst, cmp,
                  **extra) -> dict:
     """One entry of the kernels line: main-path launches, and the sums
@@ -1294,6 +1694,11 @@ def main() -> int:
             raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
         phase_card_cpu(Path(sys.argv[2]), tag="xdrop")
         return 0
+    if sys.argv[1:2] == ["--golden-child"]:         # phase_golden
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+        golden_child(sys.argv[2], Path(sys.argv[3]))
+        return 0
     dev_info = phase_device()
     phase_build()
     phase_rates(dev_info)
@@ -1305,11 +1710,15 @@ def main() -> int:
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
         tmp = Path(d)
-        phase_golden(tmp)
+        golden = phase_golden(tmp)
         phase_card_cpu(tmp)
         phase_card_cpu_xdrop(tmp)
+        modes = phase_card_cpu_modes(tmp, dev_info)
         scale = phase_scale(tmp, dev_info)
+        blastx = phase_scale_blastx(tmp, dev_info)
     reruns = scale["reruns"]
+    bx_reruns = {m: dict(cmp=r["cmp"], launches=r["launches"])
+                 for m, r in blastx["reruns"].items()}
 
     def bench(r):
         return {k: r[k] for k in ("B", "N", "D", "ms", "device_ms", "plain_ms",
@@ -1321,17 +1730,23 @@ def main() -> int:
             "K1 sw_band_score", "lambda_tpu_torch/csrc/sw_band.cu",
             "lambda_tpu/ops/sw_band.py:572 _make_band_kernel_lane",
             scale["launches"], k1["worst"], scale["cmp"],
-            bench_shape=bench(k1["bench"])),
+            bench_shape=bench(k1["bench"]),
+            blastx=cmp_sums(blastx["cmp"], blastx["launches"]),
+            path_launches=dict(golden=golden["default"], **modes)),
         kernel_entry(
             "K2 sw_band_dirs", "lambda_tpu_torch/csrc/sw_band_dirs.cu",
             "lambda_tpu/ops/sw_band.py:277 _make_band_dirs_kernel",
             reruns["device_trace"]["launches"], k2["worst"],
-            reruns["device_trace"]["cmp"]),
+            reruns["device_trace"]["cmp"],
+            blastx=cmp_sums(**bx_reruns["device_trace"]),
+            path_launches=dict(golden=golden["device_trace"])),
         kernel_entry(
             "K3 sw_band_sub", "lambda_tpu_torch/csrc/sw_band_sub.cu",
             "lambda_tpu/ops/sw_band.py:728 _make_band_kernel",
             reruns["sublane"]["launches"], k3["worst"],
-            reruns["sublane"]["cmp"], bench_shape=bench(k3["bench"])),
+            reruns["sublane"]["cmp"], bench_shape=bench(k3["bench"]),
+            blastx=cmp_sums(**bx_reruns["sublane"]),
+            path_launches=dict(golden=golden["sublane"])),
         kernel_entry(
             "K4 sw_rect", "lambda_tpu_torch/csrc/sw_rect.cu",
             "lambda_tpu/ops/sw_pallas.py:118 _make_kernel",

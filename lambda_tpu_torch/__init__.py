@@ -9,9 +9,11 @@ pass-2 traceback runs in the host C++ helpers (native.py).  The package
 imports nothing of ``lambda_tpu`` and no JAX: the host modules it shares
 in function are its own copies.
 
-Ported so far: ``mkindexp`` and ``searchp`` in BLASTP mode with m8/m9
-output (cli.py).  Entry points run on the card unless the caller passes
-``device="cpu"``; on the CPU every kernel runs its plain PyTorch version.
+Ported so far: the six subcommands (cli.py: mkindexp/mkindexn/mkindexbs,
+searchp/searchn/searchbs), so BLASTP, BLASTX, TBLASTN, TBLASTX, BLASTN and
+bisulfite search with m8/m9/m0/SAM/BAM output, on one device.  Entry
+points run on the card unless the caller passes ``device="cpu"``; on the
+CPU every kernel runs its plain PyTorch version.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,10 @@
 
 The parser is the JAX package's (the reference's subcommand surface,
 ``lambda/src/lambda.cpp:88-118``, with its flag names), plus
-``--device {cuda,cpu}`` on searchp.  Ported so far: ``mkindexp`` and
-``searchp``; the other subcommands and the device-mesh, streaming and
-multi-host flags exit with a "not yet ported" error.
+``--device {cuda,cpu}`` on the three search subcommands.  All six
+subcommands run (searchp/searchn/searchbs, mkindexp/mkindexn/mkindexbs),
+with m8/m9/m0/SAM/BAM output; the device-mesh, streaming, multi-host and
+profiler-trace flags exit with a "not yet ported" error.
 
     python -m lambda_tpu_torch.cli mkindexp -d db.fasta -i db.lit
     python -m lambda_tpu_torch.cli searchp -q q.fasta -i db.lit -o out.m8 \
@@ -23,7 +24,6 @@ from .misc import my_print as _my_print
 from .options import Domain
 
 SUBCOMMANDS = ("searchp", "searchn", "searchbs", "mkindexp", "mkindexn", "mkindexbs")
-PORTED = ("searchp", "mkindexp")
 
 _DOMAIN_OF = {
     "searchp": Domain.PROTEIN, "searchn": Domain.NUCLEOTIDE, "searchbs": Domain.BISULFITE,
@@ -52,15 +52,12 @@ def main(argv: list[str] | None = None) -> int:
         print("lambda-tpu-torch — the Local Aligner for Massive Biological "
               "DatA on PyTorch/CUDA\n"
               f"version {__version__}\n\n"
-              "Usage: lambda-tpu-torch [searchp|mkindexp] [OPTIONS]\n\n"
+              "Usage: lambda-tpu-torch [searchp|searchn|searchbs|"
+              "mkindexp|mkindexn|mkindexbs] [OPTIONS]\n\n"
               f"Citation: {CITATION}",
               file=sys.stderr)
         return 1 if argv else 0
     argv = argv[1:]
-    if sub not in PORTED:
-        print(f"ERROR: {sub} is not yet ported to lambda_tpu_torch "
-              f"(ported: {', '.join(PORTED)}).", file=sys.stderr)
-        return 1
     from .misc import (IndexException, QueryException,
                        strip_error_prefix as _strip_error_prefix)
     try:
@@ -300,8 +297,23 @@ def search_main(sub: str, argv: list[str]) -> int:
     opt.sam_with_ref_header = args.sam_with_refheader
     opt.sam_bam_seq = args.sam_bam_seq
     if args.sam_bam_tags.strip() == "help":
-        p.error("SAM/BAM output is not yet ported")
+        # tag help + exit 0 (search_options.hpp:774-784)
+        from .output.sam_bam import TAG_DESCRIPTIONS, TAG_ORDER
+        print("Please specify the tags in this format -oc 'tag1 tag2', "
+              "i.e. space-separated and enclosed in quotes. The order of "
+              "tags is not preserved.\nThe following specifiers are "
+              "supported:")
+        for tag in TAG_ORDER:
+            print(f"\t{tag}\t{TAG_DESCRIPTIONS[tag]}")
+        sys.exit(0)
     opt.sam_bam_tags = args.sam_bam_tags.split()
+    from .output.sam_bam import TAG_ORDER as _tag_order
+    for tag in opt.sam_bam_tags:
+        if tag not in _tag_order:
+            # unknown tags must error, not be silently dropped
+            # (search_options.hpp:802-808)
+            p.error(f'Unknown column specifier "{tag}". Please see '
+                    '"--sam-bam-tags help" for valid options.')
     opt.sam_bam_hard_clip = args.sam_bam_clip == "hard"
     opt.version_to_output_file = args.version_to_outputfile == "1"
     opt.lazy_qry_file = args.lazy_query

@@ -2,10 +2,10 @@
 
 The helpers are the host side of the search: the pass-2 SW traceback with
 inline alignment statistics, the widen/merge passes, the index build's
-parallel key packing, sort and gathers, and parallel gzip for ``.gz``
-outputs.  The library is compiled with g++ on first use into
-``build/lambda_tpu_torch/`` at the repository root, keyed by a hash of the
-source and the host ISA.  It is required: a failed build raises, and no
+parallel key packing, sort and gathers, parallel gzip for ``.gz``
+outputs, and the BGZF blocks of BAM output.  The library is compiled
+with g++ on first use into ``build/lambda_tpu_torch/`` at the repository
+root, keyed by a hash of the source and the host ISA.  It is required: a failed build raises, and no
 entry point falls back to Python loops.
 """
 
@@ -82,6 +82,9 @@ def get_lib():
         i32p,                                # stats (B, 8)
     ]
     lib.sw_traceback_stats_batch.restype = None
+    lib.bgzf_compress_block.argtypes = [u8p, ctypes.c_int32, ctypes.c_int32,
+                                        u8p, ctypes.c_int32]
+    lib.bgzf_compress_block.restype = ctypes.c_int32
     lib.gzip_compress_parallel.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         u8p, ctypes.c_int64]
@@ -199,6 +202,20 @@ def gzip_compress(data: bytes, level: int = 6,
         _ptr(src, u8p), len(data), chunk, level, _ptr(out, u8p), len(out))
     if n < 0:
         raise RuntimeError("gzip_compress_parallel failed")
+    return out[:n].tobytes()
+
+
+def bgzf_compress_block(data: bytes, level: int = 6) -> bytes:
+    """``data`` (at most 65,535 bytes) as one complete BGZF block: the
+    gzip member with the BC extra field that BAM files are made of."""
+    lib = get_lib()
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.zeros(len(data) + 4096, dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    n = lib.bgzf_compress_block(_ptr(src, u8p), len(data), level,
+                                _ptr(out, u8p), len(out))
+    if n < 0:
+        raise RuntimeError("bgzf_compress_block failed")
     return out[:n].tobytes()
 
 

@@ -15,13 +15,15 @@ bit-score/e-value filters           <-
 pass 2: traceback + alignment stats (host C++),   [LAMBDA_SW_TRACE=device:
                                                     K2 direction codes,
         host walk + per-match stats           <-    walked on the host]
-%id filter, record sort/dedup, m8/m9 writing
+%id filter, record sort/dedup/LCA, m8/m9/m0/SAM/BAM writing
 
 The two-phase iterative search (search0; search_algo.hpp:1391-1460) runs
 per batch: phase 1 with cheap seeds, successful queries are written,
-survivors re-searched with full sensitivity.  BLASTP only in this port;
-other programs, the device mesh, database streaming and multi-host
-subsets raise "not yet ported".
+survivors re-searched with full sensitivity.  Every program of the JAX
+package runs: BLASTP, BLASTX, TBLASTN, TBLASTX, BLASTN and bisulfite
+(whose odd subject frames score with the reverse matrix).  The device
+mesh, database streaming, multi-host subsets and the profiler trace
+raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from .. import scoring, statistics
 from ..index import artifact
 from ..io import fasta
 from ..ops import searchsorted as ss, sw_band
-from ..output import blast_tab
+from ..output import blast_report, blast_tab, sam_bam
 from ..stats import StatsHolder
 from . import extend, records, seeding
 
@@ -121,19 +123,26 @@ class SearchContext:
             raise _not_ported("--distributed")
         if getattr(opt, "profile_dir", ""):
             raise _not_ported("--trace-dir")
-        if opt.domain != opt_mod.Domain.PROTEIN:
-            raise _not_ported(f"{opt.domain.value} search")
 
         self.idx = artifact.load_index(opt.index_file)
         idx = self.idx
         # --- domain/index compatibility checks (search.cpp:189-207)
-        if idx.trans_alph != ab.AMINO_ACID:
+        dom = opt.domain
+        if dom == opt_mod.Domain.PROTEIN and idx.trans_alph != ab.AMINO_ACID:
             raise RuntimeError("ERROR: protein search requires a protein "
                                "index (created by mkindexp).")
+        if dom == opt_mod.Domain.NUCLEOTIDE and idx.red_alph != ab.DNA4:
+            raise RuntimeError("ERROR: nucleotide search requires a "
+                               "nucleotide index (created by mkindexn).")
+        if dom == opt_mod.Domain.BISULFITE and idx.red_alph != ab.DNA3BS:
+            raise RuntimeError("ERROR: bisulfite search requires a "
+                               "bisulfite index (created by mkindexbs).")
 
         # --- query alphabet (search.cpp:210-217)
         qalph = opt.qry_orig_alphabet
-        if qalph in ("auto", "dna5"):
+        if dom != opt_mod.Domain.PROTEIN:
+            qalph = ab.DNA5
+        elif qalph in ("auto", "dna5"):
             first = next(fasta.iter_seqs(opt.query_file), None)
             if first is None:
                 from ..misc import QueryException
@@ -146,20 +155,33 @@ class SearchContext:
 
         self.program = opt_mod.blast_program(idx.trans_alph, qalph,
                                              idx.orig_alph)
-        if self.program != opt_mod.BlastProgram.BLASTP:
-            raise _not_ported(self.program.value.upper())
         self.qry_num_frames = opt_mod.qry_num_frames(self.program,
                                                      idx.red_alph)
         self.sbj_num_frames = opt_mod.sbj_num_frames(self.program,
                                                      idx.red_alph)
-        self.bs_mode = False
+        self.bs_mode = idx.red_alph == ab.DNA3BS
 
-        # --- scoring (prepareScoring, search_algo.hpp:161-234)
-        self.align_fwd = scoring.make_protein_scheme(
-            opt.scoring_method, opt.gap_open, opt.gap_extend)
-        self.align_rev = self.align_fwd
+        # --- scoring (prepareScoring, search_algo.hpp:161-234); bisulfite
+        # scores even subject frames with the forward matrix and odd ones
+        # with the reverse matrix
+        if idx.trans_alph == ab.AMINO_ACID:
+            self.align_fwd = scoring.make_protein_scheme(
+                opt.scoring_method, opt.gap_open, opt.gap_extend)
+            self.align_rev = self.align_fwd
+            stats_kind = f"blosum{opt.scoring_method}"
+        elif self.bs_mode:
+            self.align_fwd = scoring.make_bisulfite_scheme(
+                opt.match, opt.mismatch, opt.gap_open, opt.gap_extend, "fwd")
+            self.align_rev = scoring.make_bisulfite_scheme(
+                opt.match, opt.mismatch, opt.gap_open, opt.gap_extend, "rev")
+            stats_kind = "simple"
+        else:
+            self.align_fwd = scoring.make_nucleotide_scheme(
+                opt.match, opt.mismatch, opt.gap_open, opt.gap_extend)
+            self.align_rev = self.align_fwd
+            stats_kind = "simple"
         self.ka_params = statistics.get_ka_params(
-            f"blosum{opt.scoring_method}", opt.gap_open, opt.gap_extend,
+            stats_kind, opt.gap_open, opt.gap_extend,
             match=opt.match, mismatch=opt.mismatch)
         self.evaluer = statistics.EValuer(
             self.ka_params, idx.db_total_length, self.program.q_translated)
@@ -185,13 +207,14 @@ class SearchContext:
         # prescore matrices over the trans alphabet
         self.d_sub_fwd = torch.as_tensor(
             self.align_fwd.matrix.astype(np.int64), device=self.device)
-        self.d_sub_rev = self.d_sub_fwd
+        self.d_sub_rev = torch.as_tensor(
+            self.align_rev.matrix.astype(np.int64), device=self.device)
 
-        # SW padded matrices: int32 for the host pass 2, int8 for K1
+        # SW padded matrices: int32 for the host pass 2, int8 for K1-K3
         self.sw_fwd = sw_band.extend_matrix(self.align_fwd.matrix)
-        self.sw_rev = self.sw_fwd
+        self.sw_rev = sw_band.extend_matrix(self.align_rev.matrix)
         self.e8_fwd = sw_band.ext8_from_ext32(self.sw_fwd)
-        self.e8_rev = self.e8_fwd
+        self.e8_rev = sw_band.ext8_from_ext32(self.sw_rev)
 
         self.s_windows = extend.SubjectWindows(idx.trans_concat,
                                                idx.trans_offsets)
@@ -200,7 +223,8 @@ class SearchContext:
                             else np.array([len(s) for s in idx.seqs],
                                           dtype=np.int64))
         self.trans_lens = idx.trans_lengths.astype(np.int64)
-        self.unknown_rank = ab.AA27_CHAR_TO_RANK[ord("X")]
+        self.unknown_rank = (ab.AA27_CHAR_TO_RANK[ord("X")]
+                             if idx.trans_alph == ab.AMINO_ACID else 4)
 
         # seed lengths must fit the index's packed-key capacity
         cap = idx.kmer_meta.capacity
@@ -231,6 +255,42 @@ class SearchContext:
         if need > 0.9 * total and self.opt.verbosity >= 1:
             print(f"WARNING: the device-resident index needs ~{need >> 20} "
                   f"MiB of ~{total >> 20} MiB device memory.")
+
+    def query_frame(self, q_seq: np.ndarray, frame_idx: int) -> np.ndarray:
+        """Regenerate one translated frame of a query (used at output time
+        for alignment display / SAM).  Frames are cached for the last
+        query: m0/SAM emit one row per match."""
+        # key the cache on the ARRAY OBJECT (strong reference), not a
+        # bare id(): CPython reuses freed addresses, so an id key could
+        # silently serve a previous query's frames to a later one
+        if getattr(self, "_qf_cache_key", None) is not q_seq:
+            self._qf_cache_key = q_seq
+            self._qf_cache = fr.query_trans_frames(
+                [q_seq], self.qry_orig_alph, self.idx.trans_alph,
+                self.idx.red_alph, self.opt.genetic_code)
+        return self._qf_cache[frame_idx]
+
+    def subject_frame(self, frame_id: int) -> np.ndarray:
+        o = self.idx.trans_offsets
+        return self.idx.trans_concat[o[frame_id]: o[frame_id + 1]]
+
+    def alignment_rows(self, bm, q_seq: np.ndarray):
+        """Display rows for the m0 report."""
+        F = self.qry_num_frames
+        qf = self.query_frame(q_seq, bm.qry_frame_id % F)
+        sf = self.subject_frame(bm.subj_frame_id)
+        q_chars = ab.decode(qf, self.idx.trans_alph)
+        s_chars = ab.decode(sf, self.idx.trans_alph)
+        use_rev = self.bs_mode and bm.subj_frame_id % 2 == 1
+        subst = (self.align_rev if use_rev else self.align_fwd).matrix
+
+        def positive(qi, sj):
+            return subst[int(qf[qi]), int(sf[sj])] > 0
+
+        return blast_report.build_alignment_rows(
+            bm, q_chars, s_chars, subst, positive,
+            3 if self.program.q_translated else 1,
+            3 if self.program.s_translated else 1)
 
     def seeder_for(self, so: opt_mod.SearchOpts, scale: int = 1):
         """Seeder for a phase config; ``scale`` multiplies the cursor/hit
@@ -528,8 +588,6 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
     if not os.path.exists(opt.query_file):
         raise misc.QueryException(
             f"could not open the query file at '{opt.query_file}'.")
-    if opt.out_file_format != 0:
-        raise _not_ported("output formats other than m8/m9")
 
     if opt.verbosity >= 2:
         misc.print_search_options(opt)
@@ -582,12 +640,29 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
         version_string += (f" [created by LAMBDA-TPU-TORCH-{__version__}, "
                            "see https://github.com/seqan/lambda for the "
                            "original]")
-    writer = blast_tab.BlastTabWriter(
-        opt.output, opt.columns, opt.blast_tabular_with_comments,
-        version_string, opt.index_file)
+    if opt.out_file_format == 0:
+        writer = blast_tab.BlastTabWriter(
+            opt.output, opt.columns, opt.blast_tabular_with_comments,
+            version_string, opt.index_file)
+    elif opt.out_file_format == -1:
+        matrix_name = (f"BLOSUM{opt.scoring_method}"
+                       if idx.trans_alph == ab.AMINO_ACID
+                       else f"blastn matrix {opt.match} {opt.mismatch}")
+        writer = blast_report.BlastReportWriter(
+            opt.output, program_upper, version_string, opt.index_file,
+            db_num_seqs=len(idx.trans_frames),
+            db_total_length=idx.db_total_length,
+            matrix_name=matrix_name,
+            gap_open=opt.gap_open, gap_extend=opt.gap_extend)
+    elif opt.out_file_format in (1, 2):
+        writer = sam_bam.SamBamWriter(
+            opt.output, bam=opt.out_file_format == 2, opt=opt, ctx=ctx)
+    else:
+        raise NotImplementedError(f"output format {opt.out_file_format}")
     writer.write_header()
 
-    def write_query_records(q_global_id: str, matches: list):
+    def write_query_records(q_global_id: str, q_seq: np.ndarray,
+                            matches: list):
         # gate + qrysWithHit on PRE-cutoff matches, like the reference
         # (_writeRecord, search_algo.hpp:824-826)
         if not matches:
@@ -602,19 +677,28 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
                 lca_tax, lca_name = records.record_lca(
                     matches, idx.s_tax_ids, idx.taxon_parents,
                     idx.taxon_heights, idx.taxon_names)
-            fields = [blast_tab.fields_for_match(
-                bm, q_global_id, idx.ids[bm.n_s_id], ctx.program,
-                lca_id=lca_name, lca_tax_id=lca_tax) for bm in matches]
-            if getattr(opt, "merge_annotations", False):
-                # internal multi-host column: subject db position +
-                # frame-space coordinates + raw score let merge_m8
-                # reproduce the exact single-host total order
-                for f, bm in zip(fields, matches):
-                    f["_merge_annot"] = (
-                        f"X:{bm.n_s_id}:{bm.q_start}:{bm.q_end}:"
-                        f"{bm.s_start}:{bm.s_end}:{bm.q_frame_shift}:"
-                        f"{bm.s_frame_shift}:{bm.raw_score}")
-            writer.write_record(q_global_id, fields)
+            if opt.out_file_format == 0:
+                fields = [blast_tab.fields_for_match(
+                    bm, q_global_id, idx.ids[bm.n_s_id], ctx.program,
+                    lca_id=lca_name, lca_tax_id=lca_tax) for bm in matches]
+                if getattr(opt, "merge_annotations", False):
+                    # internal multi-host column: subject db position +
+                    # frame-space coordinates + raw score let merge_m8
+                    # reproduce the exact single-host total order
+                    for f, bm in zip(fields, matches):
+                        f["_merge_annot"] = (
+                            f"X:{bm.n_s_id}:{bm.q_start}:{bm.q_end}:"
+                            f"{bm.s_start}:{bm.s_end}:{bm.q_frame_shift}:"
+                            f"{bm.s_frame_shift}:{bm.raw_score}")
+                writer.write_record(q_global_id, fields)
+            elif opt.out_file_format == -1:
+                rows = [ctx.alignment_rows(bm, q_seq) for bm in matches]
+                writer.write_record(
+                    q_global_id, len(q_seq), matches, idx.ids,
+                    blast_tab.format_evalue, blast_tab.format_bitscore, rows)
+            else:
+                writer.write_record(q_global_id, q_seq, matches,
+                                    lca_tax=lca_tax, lca_name=lca_name)
 
     misc.my_print(opt.verbosity, 1,
                   "Searching and extending hits on-line...progress:")
@@ -651,7 +735,7 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
                 for qi, ms in res2.items():
                     res1[remaining[qi]] = ms
         for q, ms in sorted(res1.items()):
-            write_query_records(batch_ids[q], ms)
+            write_query_records(batch_ids[q], batch_seqs[q], ms)
         nonlocal done
         done += len(batch_ids)
         progress.update(done, query_total)

@@ -257,3 +257,89 @@ def test_k2_k3_k4_refuse_wrong_dtype(card, monkeypatch):
         sw_band.sw_band_score_device(q.to(torch.int32), s, d, e8, 7, GF, GE)
     with pytest.raises(ValueError):
         sw_rect.sw_score_device(q, s.to(torch.int32), e8, GF, GE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [7, 23, 39, 127])
+def test_k1_k2_k3_at_dna_width(card, monkeypatch, D):
+    """K1, K2 and K3 == their plain versions at C 6 (DNA5 + PAD, the
+    BLASTN and bisulfite matrices), each launched once per call."""
+    args = [torch.as_tensor(x, device=card)
+            for x in _case(D + 5, 64, 60 + D, D, A=5)]
+    assert args[3].shape == (6, 6)
+    want = sw_band.sw_band_score_torch(*args, D, GF, GE)
+    before = (sw_band.launches, sw_band.launches_dirs, sw_band.launches_sub)
+    assert torch.equal(sw_band.sw_band_score_device(*args, D, GF, GE).cpu(),
+                       want.cpu())
+    for g, w in zip(sw_band.sw_band_align_device(*args, D, GF, GE),
+                    sw_band.sw_band_align_torch(*args, D, GF, GE)):
+        assert torch.equal(g.cpu(), w.cpu())
+    monkeypatch.setattr(sw_band, "_LAYOUT", "sublane")
+    assert torch.equal(sw_band.sw_band_score_device(*args, D, GF, GE).cpu(),
+                       want.cpu())
+    assert (sw_band.launches, sw_band.launches_dirs, sw_band.launches_sub) \
+        == tuple(b + 1 for b in before)
+    assert int(want.max()) > 0
+
+
+def _bisulfite_batch(dev):
+    """Bisulfite extension inputs on ``dev``: 12 subject frames (even
+    forward, odd reverse), 16 converted query frames with one seed hit
+    each, widened and merged; the forward and reverse int8 matrices."""
+    from lambda_tpu_torch import scoring
+    from lambda_tpu_torch.search import extend
+
+    rng = np.random.default_rng(61)
+    frames = [rng.integers(0, 4, int(rng.integers(150, 260))).astype(np.uint8)
+              for _ in range(12)]
+    offsets = np.zeros(13, np.int64)
+    offsets[1:] = np.cumsum([len(f) for f in frames])
+    tq = np.zeros((16, 96), np.int8)
+    mk = {k: [] for k in ("qry_id", "subj_id", "qry_start", "qry_end",
+                          "subj_start", "subj_end")}
+    for g in range(16):
+        sid = g % 12
+        st = int(rng.integers(0, len(frames[sid]) - 90))
+        q = frames[sid][st:st + 80].copy()
+        conv = (1, 3) if sid % 2 == 0 else (2, 0)
+        q[(q == conv[0]) & (rng.random(80) < 0.8)] = conv[1]
+        tq[g, :80] = q
+        for k, v in zip(mk, (g, sid, 20, 32, st + 20, st + 32)):
+            mk[k].append(v)
+    m = extend.widen_and_merge(
+        extend.MatchBatch(**{k: np.asarray(v, np.int64)
+                             for k, v in mk.items()}),
+        np.full(16, 80, np.int64), offsets[1:] - offsets[:-1])
+    resident = tuple(torch.as_tensor(x, device=dev) for x in (
+        tq, np.concatenate(frames).astype(np.int8), offsets[:-1],
+        offsets[1:] - offsets[:-1]))
+    ext = [sw_band.extend_matrix(scoring.make_bisulfite_scheme(
+        2, -3, -5, -2, d).matrix) for d in ("fwd", "rev")]
+    return extend, m, resident, ext
+
+
+@pytest.mark.cuda
+def test_bisulfite_classes_on_the_card(card, monkeypatch):
+    """Bisulfite pass 1 (K1, then K3) and pass 2 (K2): one launch per
+    (qlen, band, matrix) class, the odd subject frames' classes with the
+    reverse matrix; the card's scores and traces equal the CPU's."""
+    extend, m, res_cpu, ext = _bisulfite_batch("cpu")
+    _, _, res_card, _ = _bisulfite_batch(card)
+    e8 = [sw_band.ext8_from_ext32(e) for e in ext]
+    classes = extend.bucket_groups(*extend._ext_geometry(m)[:2],
+                                   m.subj_id % 2 == 1)
+    assert {r for _, _, r in classes} == {False, True}
+    want = extend.sw_scores_device(m, *res_cpu, *e8, GF, GE, True)
+    for layout, counter in (("lane", "launches"), ("sublane", "launches_sub")):
+        monkeypatch.setattr(sw_band, "_LAYOUT", layout)
+        before = getattr(sw_band, counter)
+        got = extend.sw_scores_device(m, *res_card, *e8, GF, GE, True)
+        assert getattr(sw_band, counter) == before + len(classes)
+        np.testing.assert_array_equal(got, want)
+    assert (want > 0).sum() >= 12
+    before = sw_band.launches_dirs
+    sc, tr = extend._trace_device(m, res_card, *ext, GF, GE, True)
+    assert sw_band.launches_dirs == before + len(classes)
+    sc_cpu, tr_cpu = extend._trace_device(m, res_cpu, *ext, GF, GE, True)
+    np.testing.assert_array_equal(sc, sc_cpu)
+    assert tr == tr_cpu

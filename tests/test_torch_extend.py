@@ -161,3 +161,94 @@ def test_trace_pass_device_matches_jax_and_host(matches, monkeypatch):
     assert sum(t is not None for t in got[1]) > 20
     with pytest.raises(ValueError):
         tx.trace_pass(tm, trans_q, tw, ext, ext, gf, ge, False)
+
+
+def _dna_matches(mode: str):
+    """A DNA5 batch: 6 subjects of 2 frames each (bisulfite's forward and
+    reverse frames) and 16 query frames cut from them, C->T converted on
+    even subject frames and G->A on odd ones (bisulfite) or with random
+    substitutions (BLASTN), one seed hit per query frame, widened and
+    merged by the JAX package."""
+    rng = np.random.default_rng(61 if mode == "bisulfite" else 62)
+    frames = [rng.integers(0, 4, int(rng.integers(150, 260))).astype(np.uint8)
+              for _ in range(12)]
+    offsets = np.zeros(len(frames) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(f) for f in frames])
+    trans_concat = np.concatenate(frames)
+    trans_q, mk = [], {k: [] for k in ("qry_id", "subj_id", "qry_start",
+                                       "qry_end", "subj_start", "subj_end")}
+    for g in range(16):
+        sid = int(rng.integers(0, len(frames)))
+        st = int(rng.integers(0, len(frames[sid]) - 90))
+        q = frames[sid][st:st + 80].copy()
+        if mode == "bisulfite":
+            conv = (1, 3) if sid % 2 == 0 else (2, 0)   # C->T or G->A
+            q[(q == conv[0]) & (rng.random(len(q)) < 0.8)] = conv[1]
+        else:
+            q[rng.integers(0, 80, 6)] = rng.integers(0, 4, 6)
+        q[int(rng.integers(0, 80))] = 4                   # an N
+        trans_q.append(q)
+        for k, v in (("qry_id", g), ("subj_id", sid), ("qry_start", 20),
+                     ("qry_end", 32), ("subj_start", st + 20),
+                     ("subj_end", st + 32)):
+            mk[k].append(v)
+    mk = {k: np.asarray(v, np.int64) for k, v in mk.items()}
+    qlens = np.array([len(f) for f in trans_q], np.int64)
+    jm = jx.widen_and_merge(jx.MatchBatch(**mk), qlens,
+                            offsets[1:] - offsets[:-1], StatsHolder())
+    tq = np.zeros((len(trans_q), 96), np.int8)
+    for g, f in enumerate(trans_q):
+        tq[g, :len(f)] = f
+    resident = (torch.as_tensor(tq), torch.as_tensor(trans_concat.astype(
+        np.int8)), torch.as_tensor(offsets[:-1]),
+        torch.as_tensor(offsets[1:] - offsets[:-1]))
+    if mode == "bisulfite":
+        schemes = [scoring.make_bisulfite_scheme(2, -3, -5, -2, d)
+                   for d in ("fwd", "rev")]
+    else:
+        schemes = [scoring.make_nucleotide_scheme(2, -3, -5, -2)] * 2
+    exts = [sw_xla.extend_matrix(s.matrix) for s in schemes]
+    windows = (jx.SubjectWindows(trans_concat, offsets),
+               tx.SubjectWindows(trans_concat, offsets))
+    return (jm, trans_q, windows, exts, schemes[0].dp_gap_first,
+            schemes[0].dp_gap_extend, resident)
+
+
+@pytest.mark.parametrize("mode", ["blastn", "bisulfite"])
+def test_dna_pass1_and_pass2_match_jax(monkeypatch, mode):
+    """The kernels' host entry points at the DNA width (C 6: DNA5 and
+    PAD): pass-1 scores with one launch per (qlen, band, matrix) class,
+    the host pass 2 and K2's path all equal the JAX package's; bisulfite
+    scores odd subject frames with the reverse matrix, in two classes."""
+    jm, trans_q, (jw, tw), (fwd, rev), gf, ge, resident = _dna_matches(mode)
+    bs = mode == "bisulfite"
+    tm = tx.MatchBatch(*jm._arrays())
+    want, _ = jx._run_bucketed(jm, trans_q, jw, fwd, rev, gf, ge, bs,
+                               with_trace=False)
+    st = StatsHolder()
+    e8 = [tx.sw_band.ext8_from_ext32(e) for e in (fwd, rev)]
+    assert e8[0].shape == (6, 6)
+    got = tx.sw_scores_device(tm, *resident, *e8, gf, ge, bs, stats=st)
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).sum() >= 12
+    classes = tx.bucket_groups(*tx._ext_geometry(tm)[:2],
+                               (tm.subj_id % 2 == 1) if bs
+                               else np.zeros(len(tm), bool))
+    assert st.ext_dispatches == len(classes)
+    assert {r for _, _, r in classes} == ({False, True} if bs else {False})
+    if bs:       # the reverse matrix changes the odd frames' scores
+        alias = tx.sw_scores_device(tm, *resident, e8[0], e8[0], gf, ge, bs)
+        assert (alias != got).any()
+
+    want2 = jx.trace_pass(jm, trans_q, jw, fwd, rev, gf, ge, bs)
+    host = tx.trace_pass(tm, trans_q, tw, fwd, rev, gf, ge, bs)
+    np.testing.assert_array_equal(host[0], want2[0])
+    assert host[1] == want2[1]
+    np.testing.assert_array_equal(host[2], want2[2])
+    monkeypatch.setenv("LAMBDA_SW_TRACE", "device")
+    want3 = jx.trace_pass(jm, trans_q, jw, fwd, rev, gf, ge, bs)
+    dev = tx.trace_pass(tm, trans_q, tw, fwd, rev, gf, ge, bs,
+                        resident=resident)
+    np.testing.assert_array_equal(dev[0], want3[0])
+    assert dev[1] == want3[1]
+    np.testing.assert_array_equal(dev[0], host[0])

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 VERBATIM = ["alphabets", "frames", "options", "scoring", "statistics",
             "stats", "io/__init__", "io/fasta", "io/async_buffer",
             "index/taxonomy", "search/records",
-            "output/blast_tab"]
+            "output/blast_tab", "output/blast_report"]
 
 
 UPSTREAM = (b"/" + b"root/reference/src/", b"lambda/src/")
@@ -51,6 +51,52 @@ def _as_copied(path: Path) -> bytes:
 def test_verbatim_copies_equal_their_originals(name):
     assert (REPO / "lambda_tpu_torch" / f"{name}.py").read_bytes() == \
         _as_copied(REPO / "lambda_tpu" / f"{name}.py")
+
+
+def test_sam_bam_copy_differs_only_in_its_bgzf_flush():
+    """output/sam_bam.py is the JAX package's module, but for the
+    docstring, the zlib import and the body of ``_bgzf_flush_block``
+    (the port's BGZF encoder never returns None, so the zlib branch
+    went)."""
+    import ast
+
+    def parts(path):
+        tree = ast.parse(path.read_text())
+        out = []
+        for node in tree.body[1:]:                   # after the docstring
+            if isinstance(node, ast.Import):
+                node.names = [a for a in node.names if a.name != "zlib"]
+                if not node.names:
+                    continue
+            if isinstance(node, ast.ClassDef):
+                node.body = [n for n in node.body if getattr(
+                    n, "name", "") != "_bgzf_flush_block"]
+            out.append(ast.dump(node))
+        return out
+
+    port = REPO / "lambda_tpu_torch" / "output" / "sam_bam.py"
+    assert parts(port) == parts(REPO / "lambda_tpu" / "output" / "sam_bam.py")
+    assert "import zlib" not in port.read_text()
+
+
+def test_bgzf_block_matches_jax_package():
+    """The port's BGZF binding writes the JAX package's block: one gzip
+    member with the BC extra field holding the block size."""
+    import gzip
+
+    from lambda_tpu import native as jn
+    from lambda_tpu_torch import native as tn
+
+    rng = np.random.default_rng(4)
+    for n in (1, 1000, 0xFF00):
+        data = bytes(rng.integers(0, 8, n).astype(np.uint8))
+        blk = tn.bgzf_compress_block(data)
+        assert blk == jn.bgzf_compress_block(data)
+        assert gzip.decompress(blk) == data
+        assert blk[12:14] == b"BC" and \
+            int.from_bytes(blk[16:18], "little") == len(blk) - 1
+    with pytest.raises(RuntimeError):
+        tn.bgzf_compress_block(bytes(70000))
 
 
 def test_native_copy_equals_original_source():

@@ -64,6 +64,31 @@ def test_port_builds_the_same_index(db_fasta):
                                              **kw)))
 
 
+@pytest.mark.parametrize("domain", ["NUCLEOTIDE", "BISULFITE", "PROTEIN"],
+                         ids=["mkindexn", "mkindexbs", "mkindexp"])
+def test_port_builds_the_same_dna_index(tmp_path, domain):
+    """A DNA database indexed for each search domain (mkindexp on DNA is
+    the six-frame TBLASTN/TBLASTX index): the same arrays, and the same
+    bytes once saved."""
+    rng = np.random.default_rng(17)
+    fasta.write_fasta(tmp_path / "dna.fasta", [
+        fasta.SeqRecord(f"chr{i} contig", "".join(
+            rng.choice(list("ACGT"), int(rng.integers(150, 400)))).encode())
+        for i in range(24)])
+    built = {}
+    for who, opt_mod, art in (("jax", jopt, jart), ("port", topt, tart)):
+        o = opt_mod.IndexerOptions(domain=opt_mod.Domain[domain],
+                                   db_file=str(tmp_path / "dna.fasta"),
+                                   index_file=str(tmp_path / f"{who}.lit"))
+        built[who] = art.build_index(o)
+        art.save_index(built[who], o.index_file)
+    _assert_same_index(built["port"], built["jax"])
+    assert (tmp_path / "port.lit").read_bytes() == \
+        (tmp_path / "jax.lit").read_bytes()
+    assert built["port"].orig_alph != built["port"].trans_alph \
+        or domain != "PROTEIN"
+
+
 def test_resident_index_uploads_the_loaded_arrays(db_fasta):
     d = db_fasta
     lit = d / "res.lit"
