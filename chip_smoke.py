@@ -80,6 +80,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
                homolog reads hitting their source subject on a frame of
                the right sign (>= 50 %), then one rerun each under the
                device trace (K2) and the sublane layout (K3), byte-equal
+12. card_cpu_paths -- on the card_cpu databases, card m8 == CPU m8 for
+               BLASTP --seed-delta 2 (half-exact on and off) and 3, BLASTN
+               and bisulfite --seed-delta 2 --search0 0, BLASTP
+               --db-stream 3 (default and --seed-delta 2), bisulfite
+               --db-stream 2, K1 held against its plain version on each;
+               mkindexp --shards 4 searched with --shard-subset 0,1 and
+               2,3, merged by tools/merge_m8.py into the full run's lines
+    trace_dir -- (in the scale phase) the BLASTP search again on the
+               resident index with --trace-dir under build/: a non-empty
+               chrome trace naming K1's kernel, the m8 unchanged
+13. scale_stream -- the scale search with --db-stream 4 (the index on the
+               host as four shards uploaded per pass): m8 == the resident
+               run's, device-memory peak below the resident search's;
+               q/s, split, upload seconds per pass, K1 held
+14. scale_pigeon -- the scale search with --seed-delta 2, resident and
+               with --db-stream 4: byte-equal m8 unless a budget
+               truncation was accepted (printed); q/s, split, hits
+               located, overflow stats, retries, homolog share, K1 held
 
 then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
 Kernel ``ms`` is the call as issued (CUDA events around the wrapper's
@@ -1232,12 +1250,14 @@ def mode_inputs(mode: str, n_q: int = 128):
 
 
 @contextlib.contextmanager
-def capture(wrapper: str, keep):
-    """Clones of the inputs of the launches of ``sw_band.<wrapper>`` that
-    ``keep(args, captured)`` selects; the launches themselves run."""
-    from lambda_tpu_torch.ops import sw_band
+def capture(wrapper: str, keep, module=None):
+    """Clones of the inputs of the calls of ``sw_band.<wrapper>`` (or of
+    ``module.<wrapper>``) that ``keep(args, captured)`` selects; the
+    calls themselves run."""
+    if module is None:
+        from lambda_tpu_torch.ops import sw_band as module
 
-    launch = getattr(sw_band, wrapper)
+    launch = getattr(module, wrapper)
     captured: list = []
 
     def hook(*a):
@@ -1246,11 +1266,11 @@ def capture(wrapper: str, keep):
                                   for x in a))
         return launch(*a)
 
-    setattr(sw_band, wrapper, hook)
+    setattr(module, wrapper, hook)
     try:
         yield captured
     finally:
-        setattr(sw_band, wrapper, launch)
+        setattr(module, wrapper, launch)
 
 
 def first(n: int):
@@ -1346,6 +1366,102 @@ def phase_card_cpu_xdrop(tmp: Path) -> None:
         raise SystemExit(f"the card_cpu X-drop run exited {r.returncode}")
 
 
+# the card_cpu_paths phase's searches: name -> (database of an earlier
+# card_cpu phase, search subcommand, flags); pigeonhole seeding, the
+# db-stream passes and both combined
+CARD_CPU_PATHS = {
+    "blastp_delta2": ("small", "searchp", ["--seed-delta", "2"]),
+    "blastp_delta2_full": ("small", "searchp",
+                           ["--seed-delta", "2", "--seed-half-exact", "0"]),
+    "blastp_delta3": ("small", "searchp", ["--seed-delta", "3"]),
+    "blastn_delta2": ("blastn", "searchn",
+                      ["--seed-delta", "2", "--search0", "0"]),
+    "bisulfite_delta2": ("bisulfite", "searchbs",
+                         ["--seed-delta", "2", "--search0", "0"]),
+    "blastp_stream3": ("small", "searchp", ["--db-stream", "3"]),
+    "blastp_stream3_delta2": ("small", "searchp",
+                              ["--db-stream", "3", "--seed-delta", "2"]),
+    "bisulfite_stream2": ("bisulfite", "searchbs", ["--db-stream", "2"]),
+}
+
+
+def card_cpu_search(tmp: Path, name: str, se: str, lit: Path, q: Path,
+                    flags, dev_info) -> dict:
+    """One search with --device cuda and --device cpu: the m8 bytes, K1's
+    launches on the card (counted from 0) and K1 held against its plain
+    version on the card run's first launch."""
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp / f"{name}_{dev}.m8"
+        with capture("_sw_band_score_cuda", first(1)) as k1_in:
+            reset_band_launches()              # this path starts
+            run_cli(se, "-q", q, "-i", lit, "-o", out, "-v", "0",
+                    "--device", dev, *flags)
+            n = band_launches()                # ... and ends
+        outs[dev] = out.read_bytes()
+        if dev == "cuda":
+            launches, k1_cuda = n["launches"], k1_in
+    cmp = [k1_compare(*x[:7], dev_info, reps=3, plain_reps=0, x_drop=x[7],
+                      nc=x[8]) for x in k1_cuda]
+    return dict(m8_equal=outs["cuda"] == outs["cpu"],
+                m8_lines=outs["cuda"].count(b"\n"), k1_launches=launches,
+                cmp=cmp, m8=outs["cuda"])
+
+
+def phase_card_cpu_paths(tmp: Path, dev_info) -> dict:
+    """Pigeonhole seeding (seed delta 2 and 3), --db-stream and
+    --shard-subset on the 2 x 10^5-character databases of the card_cpu
+    phases: card m8 == CPU m8 for each search of CARD_CPU_PATHS, K1 held
+    against its plain version on each card run's first launch; then
+    mkindexp --shards 4 of the BLASTP database, searched on the card with
+    --shard-subset 0,1 and 2,3 (card == CPU for each), the two outputs
+    merged by the port's merge_m8 into the full run's line set.  Returns
+    each search's K1 launches."""
+    from lambda_tpu_torch.tools import merge_m8
+
+    dbs = {"small": (tmp / "small.lit", tmp / "small_q.fasta"),
+           "blastn": (tmp / "blastn.lit", tmp / "blastn_q.fasta"),
+           "bisulfite": (tmp / "bisulfite.lit", tmp / "bisulfite_q.fasta")}
+    runs = {}
+    for name, (db, se, flags) in CARD_CPU_PATHS.items():
+        runs[name] = card_cpu_search(tmp, name, se, *dbs[db], flags,
+                                     dev_info)
+    lit4 = tmp / "small4.lit"
+    run_cli("mkindexp", "-d", tmp / "small.fasta", "-i", lit4, "-v", "0",
+            "--shards", "4")
+    q = tmp / "small_q.fasta"
+    runs["blastp_shards4_full"] = card_cpu_search(
+        tmp, "blastp_shards4_full", "searchp", lit4, q, ["-n", "500"],
+        dev_info)
+    for sub in ("0,1", "2,3"):
+        runs[f"blastp_subset{sub}"] = card_cpu_search(
+            tmp, f"blastp_subset{sub.replace(',', '')}", "searchp", lit4, q,
+            ["-n", "500", "--shard-subset", sub], dev_info)
+    merged = tmp / "blastp_subset_merged.m8"
+    merge_m8.main([str(merged), str(tmp / "blastp_subset01_cuda.m8"),
+                   str(tmp / "blastp_subset23_cuda.m8")])
+    full = set(runs["blastp_shards4_full"]["m8"].decode().splitlines())
+    merged_equal = set(merged.read_text().splitlines()) == full
+    for name, r in runs.items():
+        emit(phase="card_cpu_paths", search=name,
+             **{k: r[k] for k in ("m8_equal", "m8_lines", "k1_launches")},
+             k1_compare=[{k: c[k] for k in ("B", "N", "D", "exact_equal",
+                                            "ms", "plain_ms", "bound_ms")}
+                         for c in r["cmp"]])
+    emit(phase="card_cpu_paths", search="merge_m8",
+         merged_equal_full=merged_equal, full_lines=len(full))
+    bad = [n for n, r in runs.items() if not r["m8_equal"]
+           or not r["m8"].strip() or r["k1_launches"] <= 0 or not r["cmp"]
+           or not all(c["exact_equal"] for c in r["cmp"])]
+    if bad:
+        raise SystemExit(f"card_cpu_paths: card m8 != CPU m8, empty m8, K1 "
+                         f"not launched or not exact: {bad}")
+    if not merged_equal:
+        raise SystemExit("card_cpu_paths: the merged --shard-subset outputs "
+                         "differ from the full run's lines")
+    return {n: r["k1_launches"] for n, r in runs.items()}
+
+
 PHASE_KEYS = ("seed", "locate", "merge", "extend", "extend_trace", "write")
 
 
@@ -1387,8 +1503,6 @@ def main_search(opt) -> dict:
 
 def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
                 n_q=1024) -> dict:
-    from lambda_tpu_torch import options as opt_mod
-
     rng = np.random.default_rng(2024)
     t0 = time.perf_counter()
     db = synthetic_db(rng, n_subj, length)
@@ -1406,24 +1520,15 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     build_s = time.perf_counter() - t0
 
     def make_opt(out: Path):
-        return opt_mod.make_search_options(
-            opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
-            index_file=str(lit), output=str(out), verbosity=0)
+        return scale_opt(tmp, out)
 
     opt = make_opt(tmp / "big.m8")
     rec = main_search(opt)
+    search_peak = torch.cuda.max_memory_allocated()
     stats, launches, search_s = rec["stats"], rec["launches"], \
         rec["search_s"]
 
-    hits: dict = {}
-    for line in (tmp / "big.m8").read_text().splitlines():
-        f = line.split("\t")
-        hits.setdefault(f[0], set()).add(f[1])
-    n_hom = sum(1 for i in range(n_q) if i % 10 < 7)
-    found = sum(1 for qid, subs in hits.items()
-                if qid.startswith("hom") and qid.split("_s")[1] in
-                {s[1:] for s in subs})
-    share = found / n_hom
+    n_hom, found, share = homolog_share(tmp / "big.m8", n_q)
     cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
            for x in rec["k1_inputs"]]
     want_m8 = (tmp / "big.m8").read_bytes()
@@ -1447,11 +1552,16 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     emit(phase="scale_spread", rounds=RERUN_ROUNDS, runs=spread,
          median_search_s={m: float(np.median(v["search_s"]))
                           for m, v in spread.items()})
-    prof = profile_search(rec.pop("ctx"), opt)
+    ctx = rec.pop("ctx")
+    prof = profile_search(ctx, opt)
+    peak = torch.cuda.max_memory_allocated()
+    # last on this index: the profiler's trace would weigh on the reruns
+    trace_launches = trace_dir_check(ctx, make_opt, tmp, want_m8)
+    del ctx
     emit(phase="scale", db_residues=n_subj * length, subjects=n_subj,
          queries=n_q, gen_s=round(gen_s, 2), index_build_s=round(build_s, 2),
          resident_bytes=rec.get("resident_bytes"),
-         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         peak_device_bytes=peak, search_peak_device_bytes=search_peak,
          # load = index read + upload (SearchContext); search = the
          # batches after it, on the resident index
          load_s=round(rec["load_s"], 3),
@@ -1478,7 +1588,219 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     if not all(c["exact_equal"] for c in cmp):
         raise SystemExit("K1 disagrees with its plain version on main-path "
                          "inputs")
-    return dict(launches=launches, cmp=cmp, reruns=reruns)
+    return dict(launches=launches, cmp=cmp, reruns=reruns, peak=search_peak,
+                trace_launches=trace_launches)
+
+
+def homolog_share(m8: Path, n_q: int):
+    """(homolog queries, those that hit their source subject, share) of a
+    scale search's m8 (query_mix names a homolog after its source)."""
+    hits: dict = {}
+    for line in m8.read_text().splitlines():
+        f = line.split("\t")
+        hits.setdefault(f[0], set()).add(f[1])
+    n_hom = sum(1 for i in range(n_q) if i % 10 < 7)
+    found = sum(1 for qid, subs in hits.items()
+                if qid.startswith("hom") and qid.split("_s")[1] in
+                {s[1:] for s in subs})
+    return n_hom, found, found / n_hom
+
+
+def trace_dir_check(ctx, make_opt, tmp: Path, want_m8: bytes) -> int:
+    """The scale search once more on the resident index (``ctx``) with
+    --trace-dir under build/: the m8 unchanged, and a non-empty chrome
+    trace in the directory that names K1's kernel.  Returns K1's
+    launches in that run."""
+    from lambda_tpu_torch.search import pipeline
+
+    tdir = tmp / "trace"
+    opt = make_opt(tmp / "big_trace.m8")
+    opt.profile_dir = str(tdir)
+    cls = pipeline.SearchContext
+    pipeline.SearchContext = lambda *a, **kw: ctx      # the resident index
+    try:
+        reset_band_launches()                  # this path starts
+        t0 = time.perf_counter()
+        pipeline.run_search(opt, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = band_launches()["launches"]  # ... and ends
+    finally:
+        pipeline.SearchContext = cls
+    files = sorted(tdir.glob("*.json"))
+    text = files[0].read_text() if files else ""
+    names_k1 = "sw_band_score_kernel" in text
+    same = (tmp / "big_trace.m8").read_bytes() == want_m8
+    emit(phase="trace_dir", directory=str(tdir.relative_to(REPO)),
+         files=[f.name for f in files], trace_bytes=len(text),
+         names_k1_kernel=names_k1, m8_equal_default=same,
+         k1_launches=launches, seconds=round(secs, 3))
+    if not files or not text or not names_k1:
+        raise SystemExit("--trace-dir wrote no trace, or one that does not "
+                         "name K1's kernel")
+    if not same or launches <= 0:
+        raise SystemExit("the --trace-dir run's m8 differs, or it launched "
+                         "K1 no time")
+    return launches
+
+
+@contextlib.contextmanager
+def counting(cls, name: str):
+    """Counts the calls of method ``name`` of ``cls`` (the budget retries
+    of SearchContext._next_scale)."""
+    meth = getattr(cls, name)
+    calls = [0]
+
+    def hook(*a, **kw):
+        calls[0] += 1
+        return meth(*a, **kw)
+
+    setattr(cls, name, hook)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, meth)
+
+
+def scale_opt(tmp: Path, out: Path, stream: int = 1,
+              delta: int | None = None):
+    """The scale phase's searchp options (default), with --db-stream and
+    --seed-delta as given."""
+    from lambda_tpu_torch import options as opt_mod
+
+    opt = opt_mod.make_search_options(
+        opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
+        index_file=str(tmp / "big.lit"), output=str(out), verbosity=0)
+    opt.db_stream = stream
+    if delta is not None:
+        opt.search_opts.max_seed_dist = delta
+    return opt
+
+
+def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
+    """One scale search through main_search (index loaded anew, device
+    memory peak from 0): its numbers, budget retries and K1 held against
+    its plain version on the first three launches' inputs."""
+    import gc
+
+    from lambda_tpu_torch.search import pipeline, seeding
+
+    delta = kw.get("delta") or 1
+
+    def phase2_walk(a, captured):      # the first walk of phase 2's seeds
+        return not captured and a[0].max_seed_dist == delta
+
+    gc.collect()                       # the previous context is gone
+    torch.cuda.empty_cache()
+    with counting(pipeline.SearchContext, "_next_scale") as retries, \
+            capture("_slot_walk", phase2_walk, seeding) as walk_in:
+        rec = main_search(scale_opt(tmp, out, **kw))
+    ctx, stats = rec.pop("ctx"), rec["stats"]
+    peak = torch.cuda.max_memory_allocated()
+    cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
+           for x in rec["k1_inputs"]]
+    n_hom, found, share = homolog_share(out, n_q)
+    r = dict(search_s=round(rec["search_s"], 3),
+             load_s=round(rec["load_s"], 3),
+             queries_per_s=round(n_q / rec["search_s"], 2),
+             phase_s={k: round(getattr(stats, f"time_{k}"), 3)
+                      for k in PHASE_KEYS},
+             k1_launches=rec["launches"], peak_device_bytes=peak,
+             hits_located=stats.hits_after_seeding,
+             hits_overflow=stats.hits_overflow,
+             cursors_overflow=stats.cursors_overflow,
+             budget_retries=retries[0],
+             budget_scale=dict((str(k), v) for k, v in
+                               ctx._budget_scale.items()),
+             homolog_queries=n_hom, homolog_hit_source=found,
+             homolog_share=round(share, 4),
+             m8_lines=out.read_bytes().count(b"\n"),
+             k1_compare=[{k: c[k] for k in
+                          ("B", "N", "D", "exact_equal", "ms", "device_ms",
+                           "plain_ms", "bound_ms")} for c in cmp])
+    if walk_in:
+        r["slot_walk"] = slot_walk_cost(seeding._slot_walk, walk_in[0])
+    if ctx.db_stream > 1:
+        up = ctx.stream_upload_s
+        r["upload_s_per_pass"] = {k: [round(x, 4) for x in v]
+                                  for k, v in up.items()}
+        r["upload_s_mean"] = {k: round(float(np.mean(v)), 4) if v else None
+                              for k, v in up.items()}
+        r["shard_host_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in ctx.stream_sh.values())
+    del ctx
+    if rec["launches"] <= 0:
+        raise SystemExit(f"the scale search {kw} launched K1 no time")
+    if not cmp or not all(c["exact_equal"] for c in cmp):
+        raise SystemExit(f"K1 disagrees with its plain version on the "
+                         f"scale search {kw}")
+    return dict(r, cmp=cmp)
+
+
+def slot_walk_cost(walk, args) -> dict:
+    """The cost of one call of search/seeding.py:_slot_walk on the inputs
+    of the search's first call: slots and rows walked, ms as called
+    (CUDA events, median of 5) and the CUDA kernels it launches
+    (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        walk(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(slots=int(args[7].shape[0]), rows=int(args[1].shape[0]),
+                ms=time_ms(lambda: walk(*args), 5),
+                kernel_launches=sum(e.count for e in kern))
+
+
+def phase_scale_stream(tmp: Path, dev_info, resident_peak: int,
+                       n_q=1024) -> dict:
+    """The scale phase's BLASTP search with --db-stream 4: the 10^8-residue
+    index stays on the host as four shards, each uploaded per pass.  The
+    m8 must equal the resident run's and the device-memory peak must stay
+    below the resident run's; q/s, the split, the upload seconds of each
+    pass, K1's launches and K1 against its plain version."""
+    r = scale_run(tmp, dev_info, tmp / "big_stream.m8", n_q, stream=4)
+    same = (tmp / "big_stream.m8").read_bytes() == \
+        (tmp / "big.m8").read_bytes()
+    emit(phase="scale_stream", shards=4, queries=n_q,
+         m8_equal_resident=same, resident_peak_device_bytes=resident_peak,
+         **{k: v for k, v in r.items() if k != "cmp"})
+    if not same:
+        raise SystemExit("the --db-stream 4 m8 differs from the resident "
+                         "run's")
+    if r["peak_device_bytes"] >= resident_peak:
+        raise SystemExit("the --db-stream 4 search's device-memory peak is "
+                         "not below the resident run's")
+    return r
+
+
+def phase_scale_pigeon(tmp: Path, dev_info, n_q=1024) -> dict:
+    """The scale phase's index and queries with --seed-delta 2 (pigeonhole
+    seeding in phase 2; half-exact, adaptive, two phases), resident and
+    then with --db-stream 4.  The two m8 must be byte-equal unless a
+    budget truncation was accepted (hits_overflow or cursors_overflow at
+    the accepted scale in either run): the JAX package's budgets are per
+    shard under streaming, so truncated hit lists may differ.  q/s, the
+    split, hits located, the overflow stats, retries, K1's launches and
+    K1 against its plain version, the homolog share."""
+    runs = {}
+    for stream in (1, 4):
+        runs[stream] = scale_run(tmp, dev_info, tmp / f"big_d2_s{stream}.m8",
+                                 n_q, stream=stream, delta=2)
+    same = (tmp / "big_d2_s1.m8").read_bytes() == \
+        (tmp / "big_d2_s4.m8").read_bytes()
+    truncated = any(r["hits_overflow"] or r["cursors_overflow"]
+                    for r in runs.values())
+    for stream, r in runs.items():
+        emit(phase="scale_pigeon", seed_delta=2, db_stream=stream,
+             queries=n_q, m8_equal_resident=same,
+             truncation_accepted=truncated,
+             **{k: v for k, v in r.items() if k != "cmp"})
+    if not same and not truncated:
+        raise SystemExit("--seed-delta 2: the streamed m8 differs from the "
+                         "resident one with no budget truncation")
+    return runs
 
 
 def phase_scale_blastx(tmp: Path, dev_info, n_q=1024) -> dict:
@@ -1714,8 +2036,11 @@ def main() -> int:
         phase_card_cpu(tmp)
         phase_card_cpu_xdrop(tmp)
         modes = phase_card_cpu_modes(tmp, dev_info)
+        paths = phase_card_cpu_paths(tmp, dev_info)
         scale = phase_scale(tmp, dev_info)
         blastx = phase_scale_blastx(tmp, dev_info)
+        stream = phase_scale_stream(tmp, dev_info, scale["peak"])
+        pigeon = phase_scale_pigeon(tmp, dev_info)
     reruns = scale["reruns"]
     bx_reruns = {m: dict(cmp=r["cmp"], launches=r["launches"])
                  for m, r in blastx["reruns"].items()}
@@ -1732,7 +2057,17 @@ def main() -> int:
             scale["launches"], k1["worst"], scale["cmp"],
             bench_shape=bench(k1["bench"]),
             blastx=cmp_sums(blastx["cmp"], blastx["launches"]),
-            path_launches=dict(golden=golden["default"], **modes)),
+            stream=cmp_sums(stream["cmp"], stream["k1_launches"]),
+            pigeon=cmp_sums(pigeon[1]["cmp"], pigeon[1]["k1_launches"]),
+            pigeon_stream=cmp_sums(pigeon[4]["cmp"],
+                                   pigeon[4]["k1_launches"]),
+            path_launches=dict(golden=golden["default"], **modes,
+                               **{f"card_cpu_{n}": v
+                                  for n, v in paths.items()},
+                               scale_stream=stream["k1_launches"],
+                               scale_pigeon=pigeon[1]["k1_launches"],
+                               scale_pigeon_stream=pigeon[4]["k1_launches"],
+                               trace_dir=scale["trace_launches"])),
         kernel_entry(
             "K2 sw_band_dirs", "lambda_tpu_torch/csrc/sw_band_dirs.cu",
             "lambda_tpu/ops/sw_band.py:277 _make_band_dirs_kernel",

@@ -4,8 +4,11 @@ The parser is the JAX package's (the reference's subcommand surface,
 ``lambda/src/lambda.cpp:88-118``, with its flag names), plus
 ``--device {cuda,cpu}`` on the three search subcommands.  All six
 subcommands run (searchp/searchn/searchbs, mkindexp/mkindexn/mkindexbs),
-with m8/m9/m0/SAM/BAM output; the device-mesh, streaming, multi-host and
-profiler-trace flags exit with a "not yet ported" error.
+with m8/m9/m0/SAM/BAM output, seed delta 0-3, ``--db-stream``,
+``--shard-subset`` (per-host outputs merged with
+``python -m lambda_tpu_torch.tools.merge_m8``) and ``--trace-dir``; the
+device mesh (``--db-shards``/``--q-shards`` > 1) and ``--distributed``
+exit with a "not yet ported" error.
 
     python -m lambda_tpu_torch.cli mkindexp -d db.fasta -i db.lit
     python -m lambda_tpu_torch.cli searchp -q q.fasta -i db.lit -o out.m8 \
@@ -172,21 +175,20 @@ def search_main(sub: str, argv: list[str]) -> int:
     p.add_argument("-t", "--threads", type=int, default=None)
     p.add_argument("--db-shards", type=int, default=1,
                    help="shard the database index over this many devices "
-                        "of the mesh (data-parallel queries, all_gather "
-                        "hit merge)")
+                        "of the mesh (not yet ported)")
     p.add_argument("--q-shards", type=int, default=1,
                    help="data-parallel query batches over this many "
-                        "devices (mesh is q-shards x db-shards)")
+                        "devices (not yet ported)")
     p.add_argument("--db-stream", type=int, default=1,
                    help="stream the database through ONE device as this "
                         "many sequential host-resident shards per query "
                         "batch — for databases larger than device "
                         "memory (only host RAM bounds the index, like "
                         "the reference); output bytes are identical to "
-                        "--db-shards N")
+                        "the resident index's")
     p.add_argument("--trace-dir", default="", metavar="DIR",
-                   help="write a profiler trace of the search loop to "
-                        "DIR (not yet ported)")
+                   help="write a torch.profiler trace of the search loop "
+                        "to DIR (a chrome trace)")
     p.add_argument("--shard-subset", default="",
                    help="comma-separated shard ids of a SHARDED index "
                         "(mkindex --shards) to load and search on this "

@@ -8,6 +8,8 @@ Replaces the reference's FM-index seed search modes
   substitution in the second half (the backtracking tree of
   searchHalfExactImpl enumerates exactly these distinct strings)
 * full delta<=1          -> substitutions at any position
+* delta >= 2             -> pigeonhole chunks (:func:`pigeon_chunks`),
+  each searched exactly, verified in search/seeding.py
 
 Variants that would duplicate the identity string (replacement equals the
 original character) are masked invalid so no hit is reported twice.
@@ -60,15 +62,15 @@ def variant_table(k: int, delta: int, alphabet_size: int, half_exact: bool):
     """Static variant spec for <=delta substitutions.
 
     Returns (positions, replacements) int32 arrays of shape (V,), where
-    position -1 denotes the identity variant.  delta >= 2 (pigeonhole
-    seeding) is not part of this port yet.
+    position -1 denotes the identity variant.  Only delta<=1 is supported
+    by enumeration; the caller handles delta==0 as exact search.
     """
     if delta == 0:
         return np.array([-1], dtype=np.int32), np.array([0], dtype=np.int32)
     if delta != 1:
-        raise NotImplementedError(
-            f"seed delta {delta}: pigeonhole seeding (delta >= 2) is not "
-            "yet ported")
+        raise ValueError(
+            f"variant enumeration only supports delta <= 1 (got {delta}); "
+            "delta >= 2 uses pigeonhole seeding (see search/seeding.py)")
     start = k // 2 if half_exact else 0  # errors only in 2nd half (hpp:555)
     pos, rep = [-1], [0]
     for p in range(start, k):
@@ -94,3 +96,18 @@ def make_variants(seed_chars: torch.Tensor, positions: np.ndarray,
     orig_at_pos = seed_chars[:, pos.clamp(min=0)]                     # (N, V)
     valid = (pos < 0)[None, :] | (orig_at_pos != rep[None, :])
     return expanded, valid
+
+
+def pigeon_chunks(k: int, delta: int):
+    """Pigeonhole partition of a k-length seed into delta+1 chunks
+    (search-scheme ``pigeon_opt`` equivalent: any occurrence with <=delta
+    mismatches matches at least one chunk exactly).
+
+    Returns (offsets, lengths) int32 arrays of shape (delta+1,); longer
+    chunks come first (remainder distributed to the leading chunks).
+    """
+    parts = delta + 1
+    base = k // parts
+    lens = [base + (1 if i < k % parts else 0) for i in range(parts)]
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    return offs, np.array(lens, dtype=np.int32)

@@ -257,31 +257,36 @@ def _gather_windows(resident, m: MatchBatch, idxs: np.ndarray, pad: int,
     the query rows, s (B, N) int8 the VIRTUAL subject windows (start
     d_lo, length qlen + d_row; positions outside the subject -> PAD) and
     d_rows (B,) int32.  ``resident`` is (trans_q, trans_sbj, sbj_offsets,
-    sbj_lens); K1, K2 and K3 launches share it."""
+    sbj_lens); K1, K2 and K3 launches share it.  The subject tensors may
+    live on the host (--db-stream keeps the subject concat there): the
+    subject windows are then gathered on the host and uploaded."""
     trans_q, trans_sbj, sbj_offsets, sbj_lens = resident
     dev = trans_q.device
     qlen, d_row, _ = _ext_geometry(m)
 
-    def col(a):
+    def col(a, d=dev):
         return torch.as_tensor(np.asarray(a[idxs], dtype=np.int64),
-                               device=dev)
+                               device=d)
 
-    qry_id, qry_start, qry_len, subj_id, d_lo, d_rows = (
-        col(a) for a in (m.qry_id, m.qry_start, qlen, m.subj_id, m.d_lo,
-                         d_row))
+    qry_id, qry_start, qry_len, d_rows = (
+        col(a) for a in (m.qry_id, m.qry_start, qlen, d_row))
     iq = torch.arange(N, device=dev)
     qidx = (qry_start[:, None] + iq[None, :]).clamp(0, trans_q.shape[1] - 1)
     qwin = trans_q[qry_id[:, None], qidx]
     qwin = torch.where(iq[None, :] < qry_len[:, None], qwin, pad)
 
-    spos = d_lo[:, None] + iq[None, :]           # subject coords
+    sdev = trans_sbj.device
+    subj_id, d_lo, s_lim = (col(a, sdev) for a in (m.subj_id, m.d_lo,
+                                                    qlen + d_row))
+    iqs = torch.arange(N, device=sdev)
+    spos = d_lo[:, None] + iqs[None, :]          # subject coords
     sval = (spos >= 0) & (spos < sbj_lens[subj_id][:, None]) \
-        & (iq[None, :] < (qry_len + d_rows)[:, None])
+        & (iqs[None, :] < s_lim[:, None])
     sabs = (sbj_offsets[subj_id][:, None] + spos).clamp(
         0, trans_sbj.shape[0] - 1)
-    swin = torch.where(sval, trans_sbj[sabs], pad)
+    swin = torch.where(sval, trans_sbj[sabs], pad).to(torch.int8)
     return (qwin.to(torch.int8).contiguous(),
-            swin.to(torch.int8).contiguous(), d_rows.to(torch.int32))
+            swin.to(dev).contiguous(), d_rows.to(torch.int32))
 
 
 def _shape_classes(m: MatchBatch, e8_fwd, e8_rev, bs_split: bool, dev):

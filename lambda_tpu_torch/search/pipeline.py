@@ -21,14 +21,20 @@ The two-phase iterative search (search0; search_algo.hpp:1391-1460) runs
 per batch: phase 1 with cheap seeds, successful queries are written,
 survivors re-searched with full sensitivity.  Every program of the JAX
 package runs: BLASTP, BLASTX, TBLASTN, TBLASTX, BLASTN and bisulfite
-(whose odd subject frames score with the reverse matrix).  The device
-mesh, database streaming, multi-host subsets and the profiler trace
+(whose odd subject frames score with the reverse matrix), with seed delta
+0-3 (pigeonhole seeding for delta >= 2).  ``--db-stream N`` keeps the
+index on the host as N shards streamed through the card per query batch
+(search/seeding.py:make_stream_seeder), ``--shard-subset`` searches a
+host's slice of a sharded index (tools/merge_m8.py merges the slices),
+and ``--trace-dir`` records a torch.profiler trace of the search loop.
+The device mesh (``--db-shards``/``--q-shards``) and ``--distributed``
 raise "not yet ported".
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -46,12 +52,13 @@ from ..stats import StatsHolder
 from . import extend, records, seeding
 
 
-def index_arrays(idx, bucket_m: int) -> dict:
+def index_arrays(idx, bucket_m: int, allow_partial: bool = False) -> dict:
     """The numpy arrays of a loaded index that the search keeps on the
     device (any object with the IndexData attributes: the JAX package's
     ``load_index`` result works too).  ``bucket`` is the first-word prefix
-    table of ``bucket_m`` characters (None for 0)."""
-    kg = idx.get_kmer(allow_partial=False)
+    table of ``bucket_m`` characters (None for 0); ``allow_partial``: a
+    --shard-subset load, whose k-mer rows are the loaded shards'."""
+    kg = idx.get_kmer(allow_partial=allow_partial)
     return dict(
         keys=kg.keys, pos=kg.pos, frame=kg.frame,
         bucket=(ss.prefix_table(kg.keys[:, 0], kg.bits, bucket_m)
@@ -100,6 +107,8 @@ class _SeedDispatch:
     d_qlens: object
     scale: int = 1          # cursor/hit budget multiplier (retry doubles)
     res2: dict | None = None   # fused seeding outputs (device tensors)
+    stream_decided: tuple | None = None  # db-stream global decisions
+    stream_outs: list | None = None      # db-stream per-shard pass-B outputs
 
 
 def _not_ported(what: str):
@@ -113,19 +122,43 @@ class SearchContext:
     def __init__(self, opt: opt_mod.LambdaOptions, device="cuda"):
         self.opt = opt
         self.device = torch.device(device)
-        for name, off in (("db_shards", 1), ("q_shards", 1),
-                          ("db_stream", 1)):
-            if int(getattr(opt, name, 1) or 1) != off:
-                raise _not_ported(f"--{name.replace('_', '-')}")
-        if getattr(opt, "shard_subset", None) is not None:
-            raise _not_ported("--shard-subset")
+        self.db_shards = max(1, int(getattr(opt, "db_shards", 1)))
+        self.q_shards = max(1, int(getattr(opt, "q_shards", 1)))
+        # --db-stream N: keep the sharded index HOST-resident and stream
+        # the shards one after another through the card per query batch
+        # -- the envelope the reference gets from host RAM
+        # (search_algo.hpp:126-155: RAM, not accelerator memory, bounds
+        # the database).  Output bytes are those of the resident index.
+        self.db_stream = max(1, int(getattr(opt, "db_stream", 1)))
+        # --shard-subset: the per-host slice of a multi-host deployment
+        # (only those k-mer shards are loaded; subjects outside them
+        # produce no seeds, and dbTotalLength/e-values stay GLOBAL so
+        # per-host outputs merge consistently)
+        self.shard_subset = getattr(opt, "shard_subset", None)
+        if self.q_shards not in (1, 2, 4, 8, 16):
+            raise RuntimeError("--q-shards must be a power of two <= 16 "
+                               "(query batches are bucketed in multiples "
+                               "of 16).")
+        if self.db_stream > 1 and self.db_shards * self.q_shards > 1:
+            raise RuntimeError("--db-stream (sequential host-resident "
+                               "shards) cannot be combined with the "
+                               "--db-shards/--q-shards device mesh.")
+        if self.db_stream > 1 and self.shard_subset is not None:
+            raise RuntimeError("--db-stream does not support "
+                               "--shard-subset; load the full index on "
+                               "this host (it only needs host RAM).")
+        if self.db_shards * self.q_shards > 1:
+            raise _not_ported("the --db-shards/--q-shards device mesh")
         if getattr(opt, "distributed", ""):
             raise _not_ported("--distributed")
-        if getattr(opt, "profile_dir", ""):
-            raise _not_ported("--trace-dir")
 
-        self.idx = artifact.load_index(opt.index_file)
+        self.idx = artifact.load_index(opt.index_file,
+                                       shards=self.shard_subset)
         idx = self.idx
+        if self.shard_subset is not None and not idx.kmer_shards:
+            raise RuntimeError(
+                "--shard-subset requires a SHARDED index "
+                "(mkindex --shards N).")
         # --- domain/index compatibility checks (search.cpp:189-207)
         dom = opt.domain
         if dom == opt_mod.Domain.PROTEIN and idx.trans_alph != ab.AMINO_ACID:
@@ -187,22 +220,54 @@ class SearchContext:
             self.ka_params, idx.db_total_length, self.program.q_translated)
 
         # device coordinates of the subject concat are int32-bounded in
-        # the JAX package; keep the same limit so both accept the same DBs
-        if int(idx.db_total_length) >= 2 ** 31:
+        # the JAX package, per SHARD under streaming; keep the same limit
+        # so both accept the same DBs.  Shards split subjects by COUNT
+        # (np.array_split: parallel/mesh.py and the mkindex --shards
+        # bounds), so bound the MAX per-shard length, not the average.
+        if self.db_stream <= 1:
+            max_shard_len = int(idx.db_total_length)
+        elif idx.shard_subj_bounds is not None:
+            b = np.asarray(idx.shard_subj_bounds, dtype=np.int64)
+            tl = np.asarray(idx.trans_lengths, dtype=np.int64)
+            cum = np.zeros(len(tl) + 1, np.int64)
+            np.cumsum(tl, out=cum[1:])
+            fb = (b * idx.sbj_num_frames).astype(np.int64)
+            max_shard_len = int(np.max(cum[fb[1:]] - cum[fb[:-1]])) \
+                if len(b) > 1 else int(idx.db_total_length)
+        else:
+            tl = np.asarray(idx.trans_lengths, dtype=np.int64)
+            per_subj = tl.reshape(-1, idx.sbj_num_frames).sum(axis=1)
+            groups = np.array_split(np.arange(len(per_subj)),
+                                    self.db_stream)
+            max_shard_len = max(
+                (int(per_subj[g].sum()) for g in groups if len(g)),
+                default=0)
+        if max_shard_len >= 2 ** 31:
             raise RuntimeError(
-                "database exceeds 2^31 translated characters; split the "
-                "database.")
-        kg = idx.get_kmer(allow_partial=False)
-        self.bucket_m = ss.pick_bucket_m(kg.bits, kg.chars_per_word,
-                                         kg.num_positions)
-        self._check_device_memory(kg)
-        d = resident_index(index_arrays(idx, self.bucket_m), self.device)
-        self.d_keys, self.d_pos, self.d_frame = d["keys"], d["pos"], \
-            d["frame"]
-        self.d_bucket = d["bucket"]
-        self.d_sbj_offsets = d["sbj_offsets"]
-        self.d_sbj_lens = d["sbj_lens"]
-        self.d_trans_sbj = d["trans_sbj"]
+                "database exceeds 2^31 translated characters on at least "
+                "one device shard; increase --db-shards/--db-stream (or "
+                "split the database).")
+        # first-word prefix bucket table (ops/searchsorted.prefix_table)
+        km = idx.kmer_meta
+        self.bucket_m = ss.pick_bucket_m(
+            km.bits, km.chars_per_word,
+            idx.kmer.num_positions if idx.kmer is not None
+            else max(s.num_positions for s in idx.kmer_shards))
+        self._check_device_memory()
+        self._d_red_sbj = None
+        self.stream_sh = None
+        if self.db_stream <= 1:
+            d = resident_index(index_arrays(
+                idx, self.bucket_m,
+                allow_partial=self.shard_subset is not None), self.device)
+            self.d_keys, self.d_pos, self.d_frame = d["keys"], d["pos"], \
+                d["frame"]
+            self.d_bucket = d["bucket"]
+            self.d_sbj_offsets = d["sbj_offsets"]
+            self.d_sbj_lens = d["sbj_lens"]
+            self.d_trans_sbj = d["trans_sbj"]
+        else:
+            self._stream_setup()
 
         # prescore matrices over the trans alphabet
         self.d_sub_fwd = torch.as_tensor(
@@ -243,18 +308,95 @@ class SearchContext:
         # dispatch did not overflow, so output bytes cannot change)
         self._budget_scale: dict = {}
 
-    def _check_device_memory(self, km):
+    def _check_device_memory(self):
         """Pre-flight device-memory estimate (device-side analogue of
         checkRAM, search_algo.hpp:126-155): warn when the resident index
-        likely exceeds the card's memory."""
+        -- under --db-stream N, one shard of it -- likely exceeds the
+        card's memory."""
         if self.device.type != "cuda":
             return
-        need = km.keys.size * 8 + km.pos.size * 8 \
-            + len(self.idx.trans_concat)
+        idx = self.idx
+        kms = [idx.kmer] if idx.kmer is not None else idx.kmer_shards
+        # int64 keys, int32 pos and frame, the int8 subject concat
+        need = (sum(k.keys.size * 8 + k.pos.size * 8 for k in kms)
+                + len(idx.trans_concat)) // self.db_stream
         _, total = torch.cuda.mem_get_info(self.device)
         if need > 0.9 * total and self.opt.verbosity >= 1:
             print(f"WARNING: the device-resident index needs ~{need >> 20} "
-                  f"MiB of ~{total >> 20} MiB device memory.")
+                  f"MiB of ~{total >> 20} MiB device memory; consider "
+                  "--db-stream N.")
+
+    def _stream_setup(self):
+        """--db-stream N: the index as N host-resident shards, split the
+        same way as the device mesh's (subject-contiguous, never splitting
+        a subject); a sharded artifact with N shards feeds them directly.
+        The host keeps ONE copy: the global k-mer arrays are released (a
+        metadata-only stub stays for kmer_meta), and on a CUDA device the
+        shard arrays move into pinned host tensors (keys as their int32
+        bit pattern: half the bytes of the card's int64 keys) that
+        _stream_seed_call uploads per pass.  The subject concat stays on
+        the host too: pass 1 and pass 2 gather their windows there."""
+        from ..index.build import KmerIndex
+        from ..parallel import mesh
+
+        idx = self.idx
+        if idx.kmer_shards and len(idx.kmer_shards) == self.db_stream:
+            sh = mesh.shard_prebuilt_index(idx, self._reduced_concat())
+        else:
+            sh = mesh.shard_loaded_index(
+                idx.get_kmer(allow_partial=False), idx.trans_concat,
+                self._reduced_concat(), idx.trans_offsets,
+                idx.trans_lengths, self.db_stream,
+                frames_per_subject=self.sbj_num_frames)
+        km = idx.kmer_meta
+        idx.kmer = KmerIndex(alphabet_size=km.alphabet_size, bits=km.bits,
+                             words=km.words,
+                             keys=np.zeros((0, km.words), np.uint32),
+                             pos=np.zeros(0, np.uint32),
+                             frame=np.zeros(0, np.uint32))
+        idx.kmer_shards = []
+        if self.bucket_m:
+            sh["bucket"] = np.stack([
+                ss.prefix_table(sh["keys"][i, :, 0], km.bits, self.bucket_m)
+                for i in range(sh["keys"].shape[0])])
+        sh["keys"] = sh["keys"].view(np.int32)
+        pin = self.device.type == "cuda"
+        self.stream_base = sh.pop("base").astype(np.int64)
+        self.stream_sh = {}
+        for name in list(sh):
+            t = torch.from_numpy(sh.pop(name))
+            self.stream_sh[name] = t.pin_memory() if pin else t
+        # host-resident subject tensors (windows are gathered there); the
+        # uint8 concat is viewed, not copied
+        self.d_trans_sbj = torch.from_numpy(idx.trans_concat.view(np.int8))
+        self.d_sbj_offsets = torch.from_numpy(
+            idx.trans_offsets[:-1].astype(np.int64))
+        self.d_sbj_lens = torch.from_numpy(
+            idx.trans_lengths.astype(np.int64))
+        self._stream_seeders: dict = {}
+        # seconds of the shard uploads of each pass A and pass B (with
+        # LAMBDA_STREAM_SYNC on, the default: the copies alone)
+        self.stream_upload_s = {"pass_a": [], "pass_b": []}
+
+    def _reduced_concat(self) -> np.ndarray:
+        """Host reduced-alphabet subject concat (redView over the subject,
+        shared_definitions.hpp:270-281)."""
+        o = self.idx.trans_offsets
+        tf = [self.idx.trans_concat[o[i]:o[i + 1]]
+              for i in range(len(o) - 1)]
+        red = fr.reduce_frames(tf, self.idx.trans_alph, self.idx.red_alph)
+        return (np.concatenate(red) if red
+                else np.zeros(0, np.uint8)).astype(np.int8)
+
+    @property
+    def d_red_sbj(self):
+        """Reduced-alphabet subject concat on the device; needed only by
+        pigeonhole (delta >= 2) verification on the resident index, built
+        on first use."""
+        if self._d_red_sbj is None:
+            self._d_red_sbj = torch.as_tensor(self._reduced_concat(),
+                                              device=self.device)
+        return self._d_red_sbj
 
     def query_frame(self, q_seq: np.ndarray, frame_idx: int) -> np.ndarray:
         """Regenerate one translated frame of a query (used at output time
@@ -316,6 +458,15 @@ class SearchContext:
             )
             self._seeders[key] = seeding.make_seeder(cfg)
         return self._seeders[key]
+
+    def stream_seeder_for(self, so: opt_mod.SearchOpts, scale: int = 1):
+        """The db-stream passes of a phase config (budgets are PER SHARD,
+        like the JAX package's mesh and stream budgets)."""
+        key = (so.seed_length, so.seed_offset, so.max_seed_dist, scale)
+        if key not in self._stream_seeders:
+            self._stream_seeders[key] = seeding.make_stream_seeder(
+                self.seeder_for(so, scale).cfg)
+        return self._stream_seeders[key]
 
     # -----------------------------------------------------------------
     # per-batch processing (one phase)
@@ -405,6 +556,8 @@ class SearchContext:
 
     def _seed_device_call(self, sd: _SeedDispatch, stats: StatsHolder):
         """Run the fused seeding for ``sd`` at its current budget scale."""
+        if self.db_stream > 1:
+            return self._stream_seed_call(sd, stats)
         seeder = self.seeder_for(sd.so, sd.scale)
         dev = self.device
         with stats.timed("time_seed"):
@@ -416,7 +569,91 @@ class SearchContext:
                 torch.zeros(sd.Q, dtype=torch.int64, device=dev),
                 self.d_pos, self.d_frame, self.d_sbj_offsets,
                 self.d_sbj_lens, self.d_trans_sbj, sd.d_trans_q,
-                self.d_sub_fwd, self.d_sub_rev, self.d_bucket)
+                self.d_sub_fwd, self.d_sub_rev, self.d_bucket,
+                red_sbj=self.d_red_sbj if seeder.pigeon else None)
+
+    def _shard_tensors(self, i: int, sync: bool):
+        """Shard ``i`` on the device: (keys, pos, frame, offsets, lengths,
+        trans, red, bucket); keys arrive as the int32 bit pattern and are
+        widened there to the int64 uint32 values.  Returns (tensors,
+        upload seconds)."""
+        dev = self.device
+        t0 = time.perf_counter()
+        up = {n: x[i].to(dev, non_blocking=True)
+              for n, x in self.stream_sh.items()}
+        if sync:
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        keys = up["keys"].to(torch.int64) & 0xFFFFFFFF
+        bkt = up["bucket"].to(torch.int64) if "bucket" in up else None
+        return (keys, up["pos"], up["frame"], up["offsets"].to(torch.int64),
+                up["lengths"].to(torch.int64), up["trans"], up["red"],
+                bkt), dt
+
+    def _stream_seed_call(self, sd: _SeedDispatch, stats: StatsHolder):
+        """Database-streaming seeding of one batch: pass A per shard
+        (local count curves / verified counts) accumulated on the device,
+        one global decide, pass B per shard with the decisions forced
+        (seeding.make_stream_seeder).  Shard tensors are uploaded per pass
+        and freed after use: the card holds one shard plus the batch's
+        tensors, never the whole index.
+
+        LAMBDA_STREAM_SYNC=0 skips the per-shard synchronisation that
+        bounds how many shard uploads can be in flight (and then the
+        recorded upload seconds are the host's enqueue time)."""
+        so = sd.so
+        strm = self.stream_seeder_for(so, sd.scale)
+        D = self.stream_sh["keys"].shape[0]
+        dev = self.device
+        sync = dev.type == "cuda" and \
+            os.environ.get("LAMBDA_STREAM_SYNC", "1") != "0"
+        slots = [torch.as_tensor(x, device=dev)
+                 for x in (sd.slot_frame, sd.slot_begin, sd.slot_rem)]
+        slot_args = (sd.d_red_q, sd.d_qlens, *slots)
+        h0 = torch.zeros(sd.Q, dtype=torch.int64, device=dev)
+
+        with stats.timed("time_seed"):
+            if sd.stream_decided is None:
+                acc, up_s = None, 0.0
+                for i in range(D):
+                    (keys, pos, frame, offs, lens, trans, red, bkt), dt = \
+                        self._shard_tensors(i, sync)
+                    up_s += dt
+                    if strm["pigeon"]:
+                        c = strm["pass_a"](
+                            keys, *slot_args, h0, pos, frame, offs, lens,
+                            trans, sd.d_trans_q, red, self.d_sub_fwd,
+                            self.d_sub_rev, bkt)
+                    else:
+                        c = strm["pass_a"](keys, *slot_args, bkt)
+                    acc = c if acc is None else acc + c
+                    del keys, pos, frame, offs, lens, trans, red, bkt, c
+                    if sync:
+                        torch.cuda.synchronize(dev)
+                self.stream_upload_s["pass_a"].append(up_s)
+                sd.stream_decided = strm["decide"](acc, sd.d_qlens, *slots,
+                                                   h0)
+                del acc
+            if strm["pigeon"]:
+                L_d, keep_d = sd.stream_decided
+                forced = (keep_d, L_d)
+            else:
+                forced = sd.stream_decided
+            outs, up_s = [], 0.0
+            for i in range(D):
+                (keys, pos, frame, offs, lens, trans, red, bkt), dt = \
+                    self._shard_tensors(i, sync)
+                up_s += dt
+                res = strm["pass_b"](
+                    keys, *slot_args, h0, pos, frame, offs, lens, trans,
+                    sd.d_trans_q, red, self.d_sub_fwd, self.d_sub_rev,
+                    *forced, bkt)
+                outs.append({k: res[k] for k in ("packed", "stats_vec")})
+                del keys, pos, frame, offs, lens, trans, red, bkt, res
+                if sync:
+                    torch.cuda.synchronize(dev)
+            self.stream_upload_s["pass_b"].append(up_s)
+            sd.stream_outs = outs
 
     def collect_batch(self, sd: _SeedDispatch, stats: StatsHolder):
         """Phase B of process_batch: pull the seeding results (retrying
@@ -427,12 +664,19 @@ class SearchContext:
         so = sd.so
         qry_seqs, trans, qlens = sd.qry_seqs, sd.trans, sd.qlens
 
-        # ONE small stats transfer decides the retry; the hit payload
-        # moves to the host only after the budgets are accepted, as a
-        # bucketed slice of the 16-byte packed rows
+        # ONE small stats transfer decides the retry (per shard under
+        # streaming); the hit payload moves to the host only after the
+        # budgets are accepted, as a bucketed slice of the 16-byte packed
+        # rows
         while True:
-            with stats.timed("time_locate"):
-                sv = sd.res2["stats_vec"].cpu().numpy()
+            if self.db_stream > 1:
+                with stats.timed("time_locate"):
+                    svs = [r["stats_vec"].cpu().numpy()
+                           for r in sd.stream_outs]
+                sv = np.stack(svs).astype(np.int64).sum(axis=0)
+            else:
+                with stats.timed("time_locate"):
+                    sv = sd.res2["stats_vec"].cpu().numpy()
             st2 = dict(hits_located=int(sv[0]), hits_overflow=int(sv[1]),
                        failed_prescore=int(sv[2]),
                        cursors_overflow=int(sv[3]))
@@ -440,6 +684,11 @@ class SearchContext:
             if (st2["hits_overflow"] or st2["cursors_overflow"]) \
                     and sd.scale < 8:
                 sd.scale = self._next_scale(st2, sd.scale)
+                if self.db_stream > 1 and self.seeder_for(so).pigeon:
+                    # pigeonhole pass A's counts were budget-truncated:
+                    # the decisions are taken again at the new scale (the
+                    # curves of delta <= 1 have no budget)
+                    sd.stream_decided = None
                 self._seed_device_call(sd, stats)
                 continue
             break
@@ -453,10 +702,25 @@ class SearchContext:
 
         if n_sel == 0:
             return {}
-        nb = min(extend._bucket(n_sel), int(sd.res2["packed"].shape[0]))
-        with stats.timed("time_locate"):
-            packed = sd.res2["packed"][:nb].cpu().numpy()[:n_sel] \
-                .astype(np.int64)
+        if self.db_stream > 1:
+            # the packed rows per shard, concatenated in shard order; local
+            # subject-frame ids -> global
+            rows = []
+            with stats.timed("time_locate"):
+                for i, r in enumerate(sd.stream_outs):
+                    n_i = int(svs[i][4])
+                    if n_i == 0:
+                        continue
+                    nb = min(extend._bucket(n_i), int(r["packed"].shape[0]))
+                    p = r["packed"][:nb].cpu().numpy()[:n_i].astype(np.int64)
+                    p[:, 0] += int(self.stream_base[i])
+                    rows.append(p)
+            packed = np.concatenate(rows, axis=0)
+        else:
+            nb = min(extend._bucket(n_sel), int(sd.res2["packed"].shape[0]))
+            with stats.timed("time_locate"):
+                packed = sd.res2["packed"][:nb].cpu().numpy()[:n_sel] \
+                    .astype(np.int64)
         seed_len = packed[:, 3] & 0xFF
         stats.add_seed_lens(seed_len)
         m = extend.MatchBatch(
@@ -475,7 +739,8 @@ class SearchContext:
         if len(m) == 0:
             return {}
 
-        # --- pass 1: score only (K1)
+        # --- pass 1: score only (K1); under --db-stream the subject
+        # windows are gathered from the host concat and uploaded
         gf = self.align_fwd.dp_gap_first
         ge = self.align_fwd.dp_gap_extend
         with stats.timed("time_extend"):
@@ -581,8 +846,6 @@ class SearchContext:
 
 
 def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
-    import os
-
     from .. import misc
 
     if not os.path.exists(opt.query_file):
@@ -700,6 +963,23 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
                 writer.write_record(q_global_id, q_seq, matches,
                                     lca_tax=lca_tax, lca_name=lca_name)
 
+    # --trace-dir: a torch.profiler trace of the search loop (host and,
+    # on the card, device activity), exported into the directory as a
+    # chrome trace when the loop ends
+    profile_dir = getattr(opt, "profile_dir", "")
+    profiler = None
+    if profile_dir:
+        try:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if ctx.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=acts)
+            profiler.__enter__()
+            misc.my_print(opt.verbosity, 1, f"Profiling to {profile_dir}")
+        except Exception as e:
+            print(f"WARNING: profiler unavailable: {e}")
+            profiler = None
+
     misc.my_print(opt.verbosity, 1,
                   "Searching and extending hits on-line...progress:")
     progress = misc.ProgressBar(opt.verbosity >= 1)
@@ -745,13 +1025,23 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
     # host runs k's tail.  Each batch's computation is unchanged and
     # outputs are written in order, so the bytes are the same.
     pending = None
-    for batch_ids, batch_seqs in batches():
-        sd = ctx.dispatch_seeding(batch_seqs, so_first, stats)
+    try:
+        for batch_ids, batch_seqs in batches():
+            sd = ctx.dispatch_seeding(batch_seqs, so_first, stats)
+            if pending is not None:
+                finish_batch(*pending)
+            pending = (batch_ids, batch_seqs, sd)
         if pending is not None:
             finish_batch(*pending)
-        pending = (batch_ids, batch_seqs, sd)
-    if pending is not None:
-        finish_batch(*pending)
+    finally:
+        # the trace is written even when a batch raises (the profile
+        # would otherwise be lost); the footer only on success -- a
+        # truncated output must not look complete
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(
+                profile_dir, f"lambda_search.{os.getpid()}.pt.trace.json"))
     progress.finish()
     writer.write_footer()
     return stats

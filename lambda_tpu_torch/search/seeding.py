@@ -1,7 +1,7 @@
-"""Device seeding engine (torch), fused path for seed delta <= 1.
+"""Device seeding engine (torch): the fused seeder and the db-stream passes.
 
-Port of ``lambda_tpu/search/seeding.py`` (make_seeder's fused program),
-itself a port of the reference seeding loop
+Port of ``lambda_tpu/search/seeding.py`` (make_seeder's fused program and
+make_stream_seeder's passes), itself a port of the reference seeding loop
 (``lambda/src/search_algo.hpp`` ``search()`` :607-762,
 ``search_impl`` :484-535, ``searchHalfExactImpl`` :537-604):
 
@@ -15,19 +15,29 @@ itself a port of the reference seeding loop
 * stage 2: all cursors of the batch are expanded into a dense hit list,
   positions and frames are gathered, and the ungapped diagonal prescore
   (seedLooksPromising, :426-481) runs over every hit.
+* pigeonhole seeding (delta >= 2; search_datastructures.hpp:506-510): the
+  seed is split into delta+1 chunks (half-exact: the exact first half is
+  the one anchor), each searched exactly in stage 1; stage 2 verifies
+  <= delta mismatches in reduced space over the verification region,
+  reports each occurrence once (from its first exact chunk), and takes
+  the adaptive elongation (by verification) and the whole-seed abundance
+  cutoff on each slot's verified counts.
+* database streaming (:func:`make_stream_seeder`): pass A per shard
+  computes the shard's counts, the caller sums them, ``decide`` takes
+  every decision once on the sums, and pass B per shard locates with the
+  decisions forced -- the same integers as one resident index.
 
 Stage 1 is reorganised for eager execution without changing a single
 decision: every slot's initial search is independent of the carry, and
 so is each cursor's occurrence-count CURVE (the counts of its variant
 extended by 0..ext_max further query characters -- the JAX package's
-``curve_impl`` for ``--db-stream``).  Both run batched over all slots; the
-Python loop over slots then only replays the accept/revert walk on the
-curves, carrying hitsThisSeq, for the cursors that the JAX program walks
-(live cursors within the per-slot ``max_cursors`` budget).  Bisection
-depths are bounded from the index (largest prefix bucket, largest live
-range) instead of the JAX while-loop's convergence test; both give the
-exact ranges.  Pigeonhole seeding (delta >= 2) and the db-stream passes
-are not ported yet.
+``curve_impl``).  Both run batched over all slots; the Python loop over
+slots then only replays the accept/revert walk on the curves, carrying
+hitsThisSeq (:func:`_slot_walk`, the one copy of that decision for the
+resident seeder, the stream decide and pigeonhole's walk on verified
+counts).  Bisection depths are bounded from the index (largest prefix
+bucket, largest live range) instead of the JAX while-loop's convergence
+test; both give the exact ranges.
 """
 
 from __future__ import annotations
@@ -148,92 +158,228 @@ def compute_seed_slots(trans_frames: list[np.ndarray], qry_num_frames: int,
                                                  frames_too_short)
 
 
+def _seed_mode(cfg: SeedConfig):
+    """Static seed-mode constants shared by the fused seeder and the
+    stream passes: (pigeon, chunk_off, chunk_len, verify_from, V,
+    positions, replacements)."""
+    k = cfg.seed_length
+    pigeon = cfg.max_seed_dist >= 2
+    if pigeon:
+        if cfg.half_exact:
+            # searchHalfExactImpl semantics (search_algo.hpp:537-604):
+            # errors confined to the second half -> the exact first half
+            # is the one anchor, verification covers [k//2, k) only
+            chunk_off = np.array([0], dtype=np.int32)
+            chunk_len = np.array([k // 2], dtype=np.int32)
+            verify_from = k // 2
+        else:
+            chunk_off, chunk_len = kmer.pigeon_chunks(k, cfg.max_seed_dist)
+            verify_from = 0
+        return pigeon, chunk_off, chunk_len, verify_from, len(chunk_off), \
+            None, None
+    positions, replacements = kmer.variant_table(
+        cfg.seed_length, cfg.max_seed_dist, cfg.alphabet_size,
+        cfg.half_exact)
+    return pigeon, None, None, 0, len(positions), positions, replacements
+
+
+def _slot_walk(cfg: SeedConfig, curve, t_w, q_w, beg_w, flen_w, rem_w,
+               base, hits0):
+    """The adaptive elongation walk (search_algo.hpp:679-726) of rows
+    sorted by seed slot: the resident seeder's walked cursors, the stream
+    decide's cursors with a nonzero global count, or pigeonhole's seed
+    slots with verified occurrences.
+
+    curve (n, E+1): each row's count with 0..E further query characters;
+    t_w/q_w (n,): its slot and query; beg_w, flen_w, rem_w (n,): its
+    seedBegin, frame length and remaining-seed estimate; base (T, Q): the
+    hitsThisSeq increments of each slot's rows that are not walked; hits0
+    (Q,) the carried hitsThisSeq.  Step e accepts while the next position
+    is inside the frame, the count is nonzero, and the extended count is
+    not below both desiredOccs and the current count; the first refusal
+    freezes the row.  A slot's kept rows (count in (0, occ_cap]) add their
+    counts to hitsThisSeq before the next slot.  Returns L (n,), the
+    accepted elongations."""
+    n, E1 = curve.shape
+    E = E1 - 1
+    dev = curve.device
+    T, Q = base.shape
+    k, mm, hf = cfg.seed_length, cfg.max_matches, cfg.heuristic_factor
+    L = torch.zeros(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return L
+    er = torch.arange(E, device=dev)
+    c1, c2 = curve[:, :E], curve[:, 1:]
+    can = ((beg_w[:, None] + k + er[None, :]) < flen_w[:, None]) & (c1 > 0)
+    grow = c2 < c1
+    hts_before = hits0.to(torch.int64)[None, :] + torch.cumsum(base, dim=0) \
+        - base
+    walked_acc = torch.zeros(Q, dtype=torch.int64, device=dev)
+    bounds = torch.searchsorted(t_w, torch.arange(T + 1, device=dev)).tolist()
+    for t in range(T):
+        a, b = bounds[t], bounds[t + 1]
+        if a == b:
+            continue
+        qs = q_w[a:b]
+        hts = (hts_before[t] + walked_acc)[qs]
+        desired = torch.where(
+            hts >= mm, 1,
+            torch.clamp((mm - hts) * hf // rem_w[a:b].clamp(min=1), min=1))
+        revert = (c2[a:b] < desired[:, None]) & grow[a:b]
+        accept = can[a:b] & ~revert
+        Lt = torch.cumprod(accept.to(torch.int64), dim=1).sum(dim=1)
+        L[a:b] = Lt
+        gfin = curve[a:b].gather(1, Lt[:, None])[:, 0]
+        kept = (gfin > 0) & (gfin <= cfg.occ_cap)
+        walked_acc.index_add_(0, qs, torch.where(kept, gfin, 0))
+    return L
+
+
+# the compacted cursor arrays stage 2 takes
+_CURSOR_KEYS = ("lo", "count", "seed_len", "frame", "begin", "shift", "slot")
+
+
 class Seeder:
-    """The fused seeding program of one phase config (stage 1 -> stable
-    cursor compaction -> stage 2 -> hit packing); see :meth:`__call__`."""
+    """The seeding programs of one phase config: the fused seeder
+    (:meth:`__call__`: stage 1 -> stable cursor compaction -> stage 2 ->
+    hit packing) and the db-stream passes (:func:`make_stream_seeder`)."""
 
     def __init__(self, cfg: SeedConfig):
-        if cfg.max_seed_dist >= 2:
-            raise NotImplementedError(
-                "pigeonhole seeding (seed delta >= 2) is not yet ported")
         self.cfg = cfg
-        self.positions, self.replacements = kmer.variant_table(
-            cfg.seed_length, cfg.max_seed_dist, cfg.alphabet_size,
-            cfg.half_exact)
-        self.V = len(self.positions)
+        (self.pigeon, self.chunk_off, self.chunk_len, self.verify_from,
+         self.V, self.positions, self.replacements) = _seed_mode(cfg)
+        # elongation steps: stage 1's walk (delta <= 1), the stream curves
+        # and pigeonhole's elongation by verification
         self.E = cfg.ext_max if cfg.adaptive else 0
 
     # -- stage 1 --------------------------------------------------------
 
-    def _variant_targets(self, red_q, gs, begin):
-        """Packed targets (R, V, words) and validity (R, V) of the seed
-        variants at rows (frame gs, seedBegin begin)."""
-        cfg = self.cfg
-        k = cfg.seed_length
-        ar = torch.arange(k, device=red_q.device)
-        idx = (begin[:, None] + ar[None, :]).clamp(0, red_q.shape[1] - 1)
-        chars = red_q[gs[:, None], idx]
-        variants, vvalid = kmer.make_variants(chars, self.positions,
+    def _variant_chars(self, red_q, gs, begin):
+        """Characters (R, V, Lc), lengths (R, V) and validity (R, V) of the
+        seed variants at rows (frame gs, seedBegin begin); pigeonhole: the
+        chunk anchors, each at its chunk's offset and length."""
+        dev = red_q.device
+        last = red_q.shape[1] - 1
+        R = gs.shape[0]
+        if self.pigeon:
+            coff = torch.as_tensor(self.chunk_off, dtype=torch.int64,
+                                   device=dev)
+            clen = torch.as_tensor(self.chunk_len, dtype=torch.int64,
+                                   device=dev)
+            ar = torch.arange(int(self.chunk_len.max()), device=dev)
+            idx = (begin[:, None, None] + coff[None, :, None]
+                   + ar[None, None, :]).clamp(0, last)
+            return (red_q[gs[:, None, None], idx], clen.expand(R, self.V),
+                    torch.ones((R, self.V), dtype=torch.bool, device=dev))
+        k = self.cfg.seed_length
+        idx = (begin[:, None] + torch.arange(k, device=dev)[None, :]) \
+            .clamp(0, last)
+        variants, vvalid = kmer.make_variants(red_q[gs[:, None], idx],
+                                              self.positions,
                                               self.replacements)
-        targets = kmer.pack_prefix(
-            variants, torch.full(variants.shape[:2], k, device=red_q.device),
-            cfg.bits, cfg.cpw, cfg.words)
-        return targets, vvalid
+        return (variants, torch.full((R, self.V), k, device=dev), vvalid)
 
-    def stage1(self, keys, red_q, qlens, slot_frame, slot_begin, slot_rem,
-               hits_this_seq0, bucket=None):
-        """Seed search + adaptive elongation + abundance cutoff over all
-        slots.  Returns dict of (Q, T*V) cursor arrays (lo, count,
-        seed_len, frame, begin) plus ``ext_over``, the largest per-slot
-        overflow of the elongation budget."""
+    def _pack(self, chars, lens):
+        """Packed keys and prefix masks (..., words) of ``chars`` at
+        ``lens`` characters."""
+        cfg = self.cfg
+        return (kmer.pack_prefix(chars, lens, cfg.bits, cfg.cpw, cfg.words),
+                ss.length_masks(lens, cfg.bits, cfg.cpw, cfg.words))
+
+    def _batched_search(self, keys, n_rows, make, bucket, min_len):
+        """(lo, count) (n_rows * V,) of every row's V strings, searched
+        over the whole index in batches of rows; ``make(a, b)`` gives rows
+        a..b's packed targets, masks (R, V, words) and validity (R, V)
+        (count 0 where invalid).  ``min_len``: the shortest string, which
+        decides whether the prefix buckets bound the bisection."""
         cfg = self.cfg
         dev = keys.device
-        k, V, E = cfg.seed_length, self.V, self.E
-        words = cfg.words
+        V, words = self.V, cfg.words
         P = keys.shape[0]
-        Q, T = slot_frame.shape
-        QV = Q * V
-        red_q = red_q.to(torch.int64)
-        qlens = qlens.to(torch.int64)
-        # slot-major rows r = t * Q + q
-        g = slot_frame.t().reshape(-1).to(torch.int64)
-        begin = slot_begin.t().reshape(-1).to(torch.int64)
-        rem = slot_rem.t().reshape(-1).to(torch.int64)
-        gs = g.clamp(min=0)
         bsh = cfg.bucket_shift if (cfg.bucket_m and bucket is not None) \
             else None
         bkt = bucket.to(torch.int64) if bsh is not None else None
-        if bkt is not None and k >= cfg.bucket_m:
+        if bkt is not None and min_len >= cfg.bucket_m:
             n0 = ss.steps_for(int((bkt[1:] - bkt[:-1]).max()))
         else:
             n0 = ss.steps_for(P)
-        mask_k = ss.length_masks(torch.tensor(k, device=dev), cfg.bits,
-                                 cfg.cpw, words)
-
-        # --- initial search of every (slot, query, variant), batched
-        lo = torch.empty(T * QV, dtype=torch.int64, device=dev)
-        count = torch.empty(T * QV, dtype=torch.int64, device=dev)
+        lo = torch.empty(n_rows * V, dtype=torch.int64, device=dev)
+        count = torch.empty(n_rows * V, dtype=torch.int64, device=dev)
         rows = max(1, _SEARCH_ROWS // V)
-        for a in range(0, T * Q, rows):
-            b = min(a + rows, T * Q)
-            targets, vvalid = self._variant_targets(red_q, gs[a:b],
-                                                    begin[a:b])
-            vvalid = vvalid & (g[a:b] >= 0)[:, None]
+        for a in range(0, n_rows, rows):
+            b = min(a + rows, n_rows)
+            targets, masks, valid = make(a, b)
             n = (b - a) * V
             lo_c, hi_c = ss.search_range(
-                keys, targets.reshape(n, words), mask_k,
+                keys, targets.reshape(n, words), masks.reshape(n, words),
                 torch.zeros(n, dtype=torch.int64, device=dev),
                 torch.full((n,), P, dtype=torch.int64, device=dev),
                 n0, bkt, bsh)
             lo[a * V:b * V] = lo_c
-            count[a * V:b * V] = torch.where(vvalid.reshape(n),
-                                             hi_c - lo_c, 0)
+            count[a * V:b * V] = torch.where(valid.reshape(n), hi_c - lo_c,
+                                             0)
+        return lo, count
+
+    @staticmethod
+    def _slot_rows(slot_frame, slot_begin, slot_rem):
+        """Slot-major rows r = t * Q + q: (g, gs, begin, rem), int64."""
+        g = slot_frame.t().reshape(-1).to(torch.int64)
+        return (g, g.clamp(min=0),
+                slot_begin.t().reshape(-1).to(torch.int64),
+                slot_rem.t().reshape(-1).to(torch.int64))
+
+    def _initial_search(self, keys, red_q, g, gs, begin, bucket):
+        """(lo, count) (T * Q * V,) of every slot row's variants."""
+        def make(a, b):
+            chars, lens, valid = self._variant_chars(red_q, gs[a:b],
+                                                     begin[a:b])
+            return (*self._pack(chars, lens), valid & (g[a:b] >= 0)[:, None])
+
+        min_len = int(self.chunk_len.min()) if self.pigeon \
+            else self.cfg.seed_length
+        return self._batched_search(keys, g.shape[0], make, bucket, min_len)
+
+    def _cursor_dict(self, lo, count, seed_len, shift, gs, begin, Q, T):
+        """(T, Q*V) cursor arrays -> the (Q, T*V) cursor lists, in the JAX
+        program's order, with each cursor's frame, seedBegin, chunk shift
+        and seed-slot id (q * T + t)."""
+        V = self.V
+        QV = Q * V
+
+        def qtv(x):
+            return x.reshape(T, Q, V).permute(1, 0, 2).reshape(Q, T * V)
+
+        def per_row(x):
+            return x.reshape(T, Q, 1).expand(T, Q, V).reshape(T, QV)
+
+        dev = lo.device
+        slot = torch.arange(Q, device=dev)[None, :] * T \
+            + torch.arange(T, device=dev)[:, None]            # (T, Q)
+        return dict(lo=qtv(lo), count=qtv(count), seed_len=qtv(seed_len),
+                    frame=qtv(per_row(gs)), begin=qtv(per_row(begin)),
+                    shift=qtv(shift), slot=qtv(per_row(slot)))
+
+    def stage1(self, keys, red_q, qlens, slot_frame, slot_begin, slot_rem,
+               hits_this_seq0, bucket=None):
+        """Seed search + adaptive elongation + abundance cutoff over all
+        slots (pigeonhole: the chunk anchors' exact counts, no decision).
+        Returns dict of (Q, T*V) cursor arrays (lo, count, seed_len,
+        frame, begin, shift, slot) plus ``ext_over``, the largest per-slot
+        overflow of the elongation budget."""
+        cfg = self.cfg
+        dev = keys.device
+        k, V, E = cfg.seed_length, self.V, self.E
+        Q, T = slot_frame.shape
+        QV = Q * V
+        red_q = red_q.to(torch.int64)
+        g, gs, begin, rem = self._slot_rows(slot_frame, slot_begin, slot_rem)
+        lo, count = self._initial_search(keys, red_q, g, gs, begin, bucket)
         lo = lo.reshape(T, QV)
         count = count.reshape(T, QV)
         seed_len = torch.full((T, QV), k, dtype=torch.int64, device=dev)
         ext_over = torch.zeros((), dtype=torch.int64, device=dev)
 
-        if E > 0:
+        if E > 0 and not self.pigeon:
             # the JAX program walks, per slot, the live cursors (nonzero
             # count) within the max_cursors budget, in (q, v) order; the
             # rest keep their initial range
@@ -242,57 +388,57 @@ class Seeder:
             rank = torch.cumsum(live.to(torch.int64), dim=1) - 1
             ext_over = (live.sum(dim=1) - CE).clamp(min=0).max()
             walk = live & (rank < CE)
-            self._walk(keys, red_q, qlens, walk, lo, count, seed_len,
-                       begin, rem, gs, hits_this_seq0, Q, T)
-        # abundance cutoff (search_algo.hpp:729)
-        keep = (count > 0) & (count <= cfg.occ_cap)
-        kept_count = torch.where(keep, count, 0)
+            self._walk(keys, red_q, qlens.to(torch.int64), walk, lo, count,
+                       seed_len, gs, begin, rem, hits_this_seq0, Q, T)
+        if self.pigeon:
+            # chunk-anchor counts are counts of a much shorter string: the
+            # abundance cutoff waits for stage 2's verified counts
+            shift = torch.as_tensor(self.chunk_off, dtype=torch.int64,
+                                    device=dev).repeat(T, Q)
+            keep = count > 0
+        else:
+            shift = torch.zeros_like(lo)
+            # abundance cutoff (search_algo.hpp:729)
+            keep = (count > 0) & (count <= cfg.occ_cap)
+        cur = self._cursor_dict(lo, torch.where(keep, count, 0), seed_len,
+                                shift, gs, begin, Q, T)
+        cur["ext_over"] = ext_over
+        return cur
 
-        def qtv(x):        # (T, Q*V) -> (Q, T*V), the JAX cursor order
-            return x.reshape(T, Q, V).permute(1, 0, 2).reshape(Q, T * V)
-
-        gsq = gs.reshape(T, Q, 1).expand(T, Q, V).reshape(T, QV)
-        bq = begin.reshape(T, Q, 1).expand(T, Q, V).reshape(T, QV)
-        return dict(lo=qtv(lo), count=qtv(kept_count),
-                    seed_len=qtv(seed_len), frame=qtv(gsq), begin=qtv(bq),
-                    ext_over=ext_over)
-
-    def _walk(self, keys, red_q, qlens, walk, lo, count, seed_len, begin,
-              rem, gs, hits0, Q, T):
-        """Adaptive elongation of the walked cursors, in place on the
-        (T, Q*V) lo/count/seed_len arrays.
-
-        Count curves first (batched, carry-free): step e re-searches the
-        variant extended by e+1 query characters inside the step-e range.
-        Then the accept/revert walk (search_algo.hpp:679-726) per slot in
-        schedule order, carrying hitsThisSeq: step e accepts while the
-        cursor can extend (next position inside its frame, count > 0) and
-        the extended count is not below both desiredOccs and the current
-        count; the first refusal freezes the cursor."""
+    def _count_curves(self, keys, red_q, widx, lo, count, gs, begin, Q):
+        """Occurrence-count curves of the cursors ``widx`` (flat (t, q, v)
+        indices into the (T, Q*V) arrays): step e re-searches the variant
+        extended by e+1 query characters inside the step-e range.
+        Returns (t_w, q_w, r_w, lo_curve, cnt_curve), the curves
+        (n, E+1)."""
         cfg = self.cfg
         dev = keys.device
         k, V, E = cfg.seed_length, self.V, self.E
         QV = Q * V
-        mm, hf = cfg.max_matches, cfg.heuristic_factor
-        widx = torch.nonzero(walk.reshape(-1)).reshape(-1)
         nW = widx.numel()
-        hits0 = hits0.to(torch.int64)
-        if nW == 0:
-            return
         t_w = widx // QV
         qv = widx % QV
         q_w = qv // V
         r_w = t_w * Q + q_w
         beg_w = begin[r_w]
         gs_w = gs[r_w]
-        flen_w = qlens[gs_w]
-        # the walked variants' packed strings, rebuilt for these rows only
-        targets, _ = self._variant_targets(red_q, gs_w, beg_w)
-        tgt = targets[torch.arange(nW, device=dev), qv % V]
+        # each cursor's own variant: its seed with the variant's one
+        # substitution (position -1: the identity)
+        ar = torch.arange(k, device=dev)
+        chars = red_q[gs_w[:, None],
+                      (beg_w[:, None] + ar[None, :]).clamp(0, red_q.shape[1]
+                                                           - 1)]
+        v_w = qv % V
+        pos = torch.as_tensor(self.positions, dtype=torch.int64,
+                              device=dev)[v_w]
+        rep = torch.as_tensor(self.replacements, dtype=torch.int64,
+                              device=dev)[v_w]
+        chars = torch.where(ar[None, :] == pos[:, None], rep[:, None], chars)
+        tgt = self._pack(chars, torch.full((nW,), k, device=dev))[0]
         lo_c = lo.reshape(-1)[widx]
         cnt0 = count.reshape(-1)[widx]
         hi_c = lo_c + cnt0
-        n_ext = ss.steps_for(int(cnt0.max()))
+        n_ext = ss.steps_for(int(cnt0.max())) if nW else 1
         lo_curve = [lo_c]
         cnt_curve = [cnt0]
         for e in range(E):
@@ -306,53 +452,37 @@ class Seeder:
             lo_c, hi_c = ss.search_range(keys, tgt, msk, lo_c, hi_c, n_ext)
             lo_curve.append(lo_c)
             cnt_curve.append(hi_c - lo_c)
-        lo_curve = torch.stack(lo_curve, dim=1)          # (nW, E+1)
-        cnt_curve = torch.stack(cnt_curve, dim=1)
-        er = torch.arange(E, device=dev)
-        can = ((beg_w[:, None] + k + er[None, :]) < flen_w[:, None]) \
-            & (cnt_curve[:, :E] > 0)
-        c1, c2 = cnt_curve[:, :E], cnt_curve[:, 1:]
-        grow = c2 < c1
+        return (t_w, q_w, r_w, torch.stack(lo_curve, dim=1),
+                torch.stack(cnt_curve, dim=1))
 
-        # hitsThisSeq before each slot: hits0 + the kept counts of the
-        # cursors that are not walked (fixed), plus the walked cursors'
-        # final counts of earlier slots (accumulated in the loop)
-        cnt_t = count.reshape(T, Q, V)
+    def _walk(self, keys, red_q, qlens, walk, lo, count, seed_len, gs, begin,
+              rem, hits0, Q, T):
+        """Adaptive elongation of the walked cursors, in place on the
+        (T, Q*V) lo/count/seed_len arrays: their count curves, then
+        :func:`_slot_walk` with the kept counts of the cursors that are not
+        walked (fixed at their initial count) as each slot's base."""
+        cfg = self.cfg
+        widx = torch.nonzero(walk.reshape(-1)).reshape(-1)
+        if widx.numel() == 0:
+            return
+        t_w, q_w, r_w, lo_curve, cnt_curve = self._count_curves(
+            keys, red_q, widx, lo, count, gs, begin, Q)
+        cnt_t = count.reshape(T, Q, self.V)
         fixed = (cnt_t > 0) & (cnt_t <= cfg.occ_cap) \
-            & ~walk.reshape(T, Q, V)
+            & ~walk.reshape(T, Q, self.V)
         base = torch.where(fixed, cnt_t, 0).sum(dim=2)          # (T, Q)
-        hts_before = hits0[None, :] + torch.cumsum(base, dim=0) - base
-        walked_acc = torch.zeros(Q, dtype=torch.int64, device=dev)
-        L = torch.empty(nW, dtype=torch.int64, device=dev)
-        bounds = torch.searchsorted(
-            t_w, torch.arange(T + 1, device=dev)).tolist()
-        ar_rem = rem[r_w]
-        for t in range(T):
-            a, b = bounds[t], bounds[t + 1]
-            if a == b:
-                continue
-            qs = q_w[a:b]
-            hts = (hts_before[t] + walked_acc)[qs]
-            desired = torch.where(
-                hts >= mm, 1,
-                torch.clamp((mm - hts) * hf // ar_rem[a:b].clamp(min=1),
-                            min=1))
-            revert = (c2[a:b] < desired[:, None]) & grow[a:b]
-            accept = can[a:b] & ~revert
-            Lt = torch.cumprod(accept.to(torch.int64), dim=1).sum(dim=1)
-            L[a:b] = Lt
-            gfin = cnt_curve[a:b].gather(1, Lt[:, None])[:, 0]
-            kept = (gfin > 0) & (gfin <= cfg.occ_cap)
-            walked_acc.index_add_(0, qs, torch.where(kept, gfin, 0))
+        L = _slot_walk(cfg, cnt_curve, t_w, q_w, begin[r_w],
+                       qlens[gs[r_w]], rem[r_w], base, hits0)
         lo.view(-1)[widx] = lo_curve.gather(1, L[:, None])[:, 0]
         count.view(-1)[widx] = cnt_curve.gather(1, L[:, None])[:, 0]
-        seed_len.view(-1)[widx] = k + L
+        seed_len.view(-1)[widx] = cfg.seed_length + L
 
     # -- compaction, stage 2, packing -----------------------------------
 
     def _compact(self, cur):
         """Stable device cursor compaction (valid cursors first, original
-        order preserved).  Returns (take, n_valid)."""
+        order preserved).  Returns (the compacted (C,) cursor arrays,
+        n_valid)."""
         C = self.cfg.max_cursors
         count = cur["count"].reshape(-1)
         valid = count > 0
@@ -367,20 +497,32 @@ class Seeder:
             x = torch.nn.functional.pad(x, (0, C - c_eff))
             return torch.where(keep, x, 0)
 
-        return take, n_valid
+        return {name: take(name) for name in _CURSOR_KEYS}, n_valid
 
     def stage2(self, kmer_pos, kmer_frame, sbj_offsets, sbj_lens, trans_sbj,
-               trans_q, tq_lens, cur_lo, cur_count, cur_seedlen, cur_frame,
-               cur_begin, subst_fwd, subst_rev):
-        """Flat locate + prescore over the compacted (C,) cursor arrays.
-        Returns per-hit arrays of length cfg.max_hits + stats."""
+               trans_q, tq_lens, cur, subst_fwd, subst_rev, red_q=None,
+               red_sbj=None, slots=None, hits0=None, emit_cnt=False,
+               forced=None):
+        """Flat locate (+ pigeonhole verification) + prescore over the
+        compacted (C,) cursor arrays ``cur``.  Returns per-hit arrays of
+        length cfg.max_hits + stats.
+
+        Pigeonhole mode also takes red_q/red_sbj (reduced query frames and
+        subject concat), slots = (slot_frame, slot_begin, slot_rem) and
+        hits0.  Stream hooks (pigeonhole only): ``emit_cnt`` returns the
+        shard-LOCAL per-slot verified-count matrix (Q*T, E+1) instead of
+        hits (pass A); ``forced`` = (keep_dense, L_dense) replaces the
+        decisions taken here with global ones (pass B)."""
         cfg = self.cfg
-        dev = cur_lo.device
+        dev = cur["lo"].device
         trans_q = trans_q.to(torch.int64)
-        C = cur_lo.shape[0]
+        tq_lens = tq_lens.to(torch.int64)
+        C = cur["lo"].shape[0]
         Hn = cfg.max_hits
+        k = cfg.seed_length
         # counts are clamped to Hn before the cumsum: hits past Hn are
         # truncated anyway; the overflow stat sums the real total (int64)
+        cur_count = cur["count"]
         total_all = cur_count.sum()
         cum = torch.cumsum(torch.clamp(cur_count, max=Hn), dim=0)
         total = cum[-1]
@@ -391,13 +533,86 @@ class Seeder:
         occ = j - prev
         hit_valid = j < total
 
-        row = (cur_lo[cursor_of] + occ).clamp(0, kmer_pos.shape[0] - 1)
+        row = (cur["lo"][cursor_of] + occ).clamp(0, kmer_pos.shape[0] - 1)
         pos = kmer_pos[row].to(torch.int64)
         sframe = kmer_frame[row].to(torch.int64)
-        s_off = pos - sbj_offsets[sframe]
-        qframe = cur_frame[cursor_of]
-        qbegin = cur_begin[cursor_of]
-        slen_seed = cur_seedlen[cursor_of]
+        s_off = pos - sbj_offsets[sframe] - cur["shift"][cursor_of]
+        qframe = cur["frame"][cursor_of]
+        qbegin = cur["begin"][cursor_of]
+        slen_seed = cur["seed_len"][cursor_of]
+
+        if self.pigeon:
+            red_q = red_q.to(torch.int64)
+            last_q = red_q.shape[1] - 1
+            last_s = red_sbj.shape[0] - 1
+            qf = qframe.clamp(0, red_q.shape[0] - 1)
+            s_base = sbj_offsets[sframe]
+            s_len = sbj_lens[sframe]
+            # verify <= delta mismatches over the seed's verification
+            # region in reduced space; accept only from the FIRST exactly
+            # matching chunk
+            rk = torch.arange(k, device=dev)
+            q_r = red_q[qf[:, None], (qbegin[:, None] + rk).clamp(0, last_q)]
+            s_r = red_sbj[(s_base[:, None] + s_off[:, None] + rk)
+                          .clamp(0, last_s)].to(torch.int64)
+            mism = q_r != s_r                                 # (Hn, k)
+            in_bounds = (s_off >= 0) & (s_off + k <= s_len)
+            n_mism = (mism & (rk >= self.verify_from)).sum(dim=1)
+            ok = in_bounds & (n_mism <= cfg.max_seed_dist)
+            cidx = torch.searchsorted(
+                torch.as_tensor(self.chunk_off, dtype=torch.int64,
+                                device=dev), cur["shift"][cursor_of])
+            dup = torch.zeros(Hn, dtype=torch.bool, device=dev)
+            for c in range(self.V):
+                a = int(self.chunk_off[c])
+                exact_c = ~mism[:, a:a + int(self.chunk_len[c])].any(dim=1)
+                dup = dup | (exact_c & (c < cidx))
+            hit_valid = hit_valid & ok & ~dup
+
+            # whole-seed abundance cutoff + adaptive elongation
+            # (search_algo.hpp:679-729) on the slot's VERIFIED occurrence
+            # counts, the reference's whole-seed approximate-match count
+            slot = cur["slot"][cursor_of]
+            vi = hit_valid.to(torch.int64)
+            Qd, Td = slots[0].shape
+            E = self.E
+            if E > 0:
+                # occurrences surviving an e-char elongation are those
+                # whose subject continues to match the query exactly in
+                # reduced space
+                er = torch.arange(E, device=dev)
+                qpos = qbegin[:, None] + k + er[None, :]
+                spos = s_off[:, None] + k + er[None, :]
+                qch = red_q[qf[:, None], qpos.clamp(0, last_q)]
+                sch = red_sbj[(s_base[:, None] + spos).clamp(0, last_s)] \
+                    .to(torch.int64)
+                okch = (qch == sch) & (spos < s_len[:, None]) \
+                    & (qpos < tq_lens[qf][:, None])
+                ext_cum = torch.cumprod(okch.to(torch.int64), dim=1)
+                ext_len = ext_cum.sum(dim=1)
+                upd = vi[:, None] * torch.cat(
+                    [torch.ones((Hn, 1), dtype=torch.int64, device=dev),
+                     ext_cum], dim=1)
+                cnt = torch.zeros((Qd * Td, E + 1), dtype=torch.int64,
+                                  device=dev).index_add_(0, slot, upd)
+                if emit_cnt:
+                    return cnt
+                if forced is not None:
+                    keep_dense, L_dense = forced
+                else:
+                    L_dense, keep_dense = self.pigeon_decide(
+                        cnt, tq_lens, *slots, hits0)
+                L_h = L_dense[slot]
+                hit_valid = hit_valid & keep_dense[slot] & (ext_len >= L_h)
+                slen_seed = torch.where(hit_valid, k + L_h, slen_seed)
+            else:
+                occ_dense = torch.zeros(Qd * Td, dtype=torch.int64,
+                                        device=dev).index_add_(0, slot, vi)
+                if emit_cnt:
+                    return occ_dense[:, None]
+                keep_dense = forced[0] if forced is not None \
+                    else occ_dense <= cfg.occ_cap
+                hit_valid = hit_valid & keep_dense[slot]
 
         if cfg.pre_scoring > 0:
             # seedLooksPromising (search_algo.hpp:426-481)
@@ -411,7 +626,7 @@ class Seeder:
             eqb = eqb - mn
             esb = esb - mn
             eff_len = eff_len0 + mn
-            qsize = tq_lens[qframe].to(torch.int64)
+            qsize = tq_lens[qframe]
             ssize = sbj_lens[sframe].to(torch.int64)
             eff_len = torch.where(
                 eff_len0 > actual,
@@ -453,8 +668,40 @@ class Seeder:
                     s_frame=sframe, s_off=s_off,
                     valid=hit_valid, passed=passed, stats=stats)
 
-    @staticmethod
-    def _pack(res):
+    def pigeon_decide(self, cnt, qlens, slot_frame, slot_begin, slot_rem,
+                      hits0):
+        """(L_dense, keep_dense) (Q*T,) from the GLOBAL per-slot verified
+        counts ``cnt`` (Q*T, E+1): the whole-seed abundance cutoff, and
+        with adaptive seeding the elongation by verification, walked over
+        each query's slots in schedule order (:func:`_slot_walk`).  The
+        resident stage 2 takes it on its own counts, the stream decide
+        (delta >= 2) on the shard-summed ones."""
+        cfg = self.cfg
+        Q, T = slot_frame.shape
+        dev = cnt.device
+        E = cnt.shape[1] - 1
+        if E == 0:
+            return (torch.zeros(Q * T, dtype=torch.int64, device=dev),
+                    cnt[:, 0] <= cfg.occ_cap)
+        curve = cnt.reshape(Q, T, E + 1).transpose(0, 1).reshape(Q * T, E + 1)
+        rows = torch.nonzero(curve[:, 0] > 0).reshape(-1)      # r = t*Q + q
+        g, gs, begin, rem = self._slot_rows(slot_frame, slot_begin, slot_rem)
+        L = _slot_walk(cfg, curve[rows], rows // Q, rows % Q, begin[rows],
+                       qlens.to(torch.int64)[gs[rows]], rem[rows],
+                       torch.zeros((T, Q), dtype=torch.int64, device=dev),
+                       hits0)
+        gfin = curve[rows].gather(1, L[:, None])[:, 0]
+        keep = torch.zeros(Q * T, dtype=torch.bool, device=dev)
+        L_all = torch.zeros(Q * T, dtype=torch.int64, device=dev)
+        keep[rows] = (gfin > 0) & (gfin <= cfg.occ_cap)
+        L_all[rows] = L
+
+        def qt(x):                                 # (t, q) rows -> q*T + t
+            return x.reshape(T, Q).t().reshape(-1)
+
+        return qt(L_all), qt(keep)
+
+    def _pack_hits(self, res):
         """Compact the (valid & passed) hits to the front, 16 bytes/hit,
         and the stats vector the host reads first."""
         sel = res["valid"] & res["passed"]
@@ -470,31 +717,211 @@ class Seeder:
              st["cursors_overflow"], sel.sum()]).to(torch.int32)
         return res
 
-    def __call__(self, keys, red_q, qlens, slot_frame, slot_begin, slot_rem,
-                 hits_this_seq0, kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
-                 trans_sbj, trans_q, subst_fwd, subst_rev, bucket=None):
-        """stage 1 -> device cursor compaction -> stage 2 -> packing.
-
-        Returns a dict whose ``stats_vec`` (int32: hits_located,
-        hits_overflow, failed_prescore, cursors_overflow, n_sel) decides
-        the budget retry and whose ``packed`` (max_hits, 4) int32 rows
-        [s_frame, s_off, q_begin, q_frame << 8 | seed_len] hold the
-        selected hits first."""
-        cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
-                          slot_rem, hits_this_seq0, bucket)
-        take, n_valid = self._compact(cur)
+    def _finish(self, cur, kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
+                trans_sbj, trans_q, qlens, red_q, red_sbj, subst_fwd,
+                subst_rev, slots, hits0, emit_cnt=False, forced=None):
+        """Compaction -> stage 2 -> packing of a stage-1 cursor dict; the
+        elongation budget shares base (max_cursors) and retry semantics
+        with the stage-2 cursor budget, so its overflow folds into the
+        same stat."""
+        cc, n_valid = self._compact(cur)
         res = self.stage2(kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
-                          trans_sbj, trans_q, qlens,
-                          take("lo"), take("count"), take("seed_len"),
-                          take("frame"), take("begin"), subst_fwd, subst_rev)
-        # the elongation budget shares base (max_cursors) and retry
-        # semantics with the stage-2 cursor budget, so its overflow folds
-        # into the same stat
+                          trans_sbj, trans_q, qlens, cc, subst_fwd,
+                          subst_rev, red_q, red_sbj, slots, hits0,
+                          emit_cnt=emit_cnt, forced=forced)
+        if emit_cnt:
+            return res
         res["stats"]["cursors_overflow"] = torch.maximum(
             torch.clamp(n_valid - self.cfg.max_cursors, min=0),
             cur["ext_over"])
-        return self._pack(res)
+        return self._pack_hits(res)
+
+    def __call__(self, keys, red_q, qlens, slot_frame, slot_begin, slot_rem,
+                 hits_this_seq0, kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
+                 trans_sbj, trans_q, subst_fwd, subst_rev, bucket=None,
+                 red_sbj=None):
+        """stage 1 -> device cursor compaction -> stage 2 -> packing.
+
+        ``red_sbj``, the reduced subject concat, is needed by pigeonhole
+        seeding only.  Returns a dict whose ``stats_vec`` (int32:
+        hits_located, hits_overflow, failed_prescore, cursors_overflow,
+        n_sel) decides the budget retry and whose ``packed`` (max_hits, 4)
+        int32 rows [s_frame, s_off, q_begin, q_frame << 8 | seed_len] hold
+        the selected hits first."""
+        cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
+                          slot_rem, hits_this_seq0, bucket)
+        return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
+                            sbj_lens, trans_sbj, trans_q, qlens, red_q,
+                            red_sbj, subst_fwd, subst_rev,
+                            (slot_frame, slot_begin, slot_rem),
+                            hits_this_seq0)
+
+    # -- database streaming (make_stream_seeder) ------------------------
+    # The decisions a single index takes on its counts become one decide
+    # over the counts SUMMED across sequential shard passes: the same
+    # integers, so the same output bytes.
+
+    def curve_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
+                   slot_rem, bucket=None):
+        """Stream pass A (delta <= 1): per-cursor occurrence-count CURVES
+        (Q, T, V, E+1) of the shard: the count of variant v of slot (q, t)
+        extended by its next e query characters -- a pure function of the
+        query and the shard, so curves add across shards.  The walk only
+        consults consecutive extensions of the accepted string, so the
+        curve holds every count the single-index walk observes.  No
+        budgets."""
+        dev = keys.device
+        V, E = self.V, self.E
+        Q, T = slot_frame.shape
+        red_q = red_q.to(torch.int64)
+        g, gs, begin, _ = self._slot_rows(slot_frame, slot_begin, slot_rem)
+        lo, count = self._initial_search(keys, red_q, g, gs, begin, bucket)
+        curves = torch.zeros((T * Q * V, E + 1), dtype=torch.int64,
+                             device=dev)
+        curves[:, 0] = count
+        if E > 0:
+            # a cursor with no local occurrence has an all-zero curve
+            widx = torch.nonzero(count > 0).reshape(-1)
+            if widx.numel():
+                curves[widx] = self._count_curves(
+                    keys, red_q, widx, lo, count, gs, begin, Q)[4]
+        return curves.reshape(T, Q, V, E + 1).permute(1, 0, 2, 3)
+
+    def curve_decide(self, curves, qlens, slot_frame, slot_begin, slot_rem,
+                     hits0):
+        """Stream decide (delta <= 1): the stage-1 walk (:func:`_slot_walk`)
+        and abundance cutoff on the GLOBAL (shard-summed) curves, every
+        cursor with a nonzero global count walked.  Returns (seed_len,
+        keep) (Q, T, V): each cursor's decided length, and the global half
+        of stage 1's keep (pass B applies the local half)."""
+        cfg = self.cfg
+        Q, T, V, E1 = curves.shape
+        dev = curves.device
+        c = curves.permute(1, 0, 2, 3).reshape(T * Q * V, E1)  # (t, q, v)
+        L = torch.zeros(T * Q * V, dtype=torch.int64, device=dev)
+        gfin = c[:, 0].clone()
+        if E1 > 1:
+            widx = torch.nonzero(gfin > 0).reshape(-1)
+            _, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
+                                                slot_rem)
+            r_w = widx // V
+            Lw = _slot_walk(cfg, c[widx], r_w // Q, r_w % Q, begin[r_w],
+                            qlens.to(torch.int64)[gs[r_w]], rem[r_w],
+                            torch.zeros((T, Q), dtype=torch.int64,
+                                        device=dev), hits0)
+            L[widx] = Lw
+            gfin[widx] = c[widx].gather(1, Lw[:, None])[:, 0]
+
+        def qtv(x):
+            return x.reshape(T, Q, V).permute(1, 0, 2)
+
+        return qtv(cfg.seed_length + L), qtv(gfin <= cfg.occ_cap)
+
+    def _stage1_forced(self, keys, red_q, slot_frame, slot_begin, f_len,
+                       f_keep, bucket=None):
+        """Stream pass B stage 1 (delta <= 1): each cursor's DECIDED string
+        (variant + accepted elongation characters) searched at its decided
+        length in the shard -- no walk.  Emits stage 1's cursor dict."""
+        cfg = self.cfg
+        dev = keys.device
+        k, V, E = cfg.seed_length, self.V, self.E
+        Q, T = slot_frame.shape
+        red_q = red_q.to(torch.int64)
+        g, gs, begin, _ = self._slot_rows(slot_frame, slot_begin, slot_begin)
+        fl = f_len.permute(1, 0, 2).reshape(-1).to(torch.int64) \
+            .clamp(k, cfg.capacity)
+        fk = f_keep.permute(1, 0, 2).reshape(-1)
+        ar = torch.arange(E, device=dev)
+        last = red_q.shape[1] - 1
+
+        def make(a, b):
+            chars, _, valid = self._variant_chars(red_q, gs[a:b], begin[a:b])
+            if E > 0:
+                epos = (begin[a:b, None] + k + ar[None, :]).clamp(0, last)
+                ech = red_q[gs[a:b, None], epos]
+                chars = torch.cat([chars, ech[:, None, :].expand(-1, V, E)],
+                                  dim=2)
+            lens = fl[a * V:b * V].reshape(b - a, V)
+            return (*self._pack(chars, lens),
+                    valid & (g[a:b] >= 0)[:, None]
+                    & fk[a * V:b * V].reshape(b - a, V))
+
+        lo, count = self._batched_search(keys, g.shape[0], make, bucket, k)
+        QV = Q * V
+        cur = self._cursor_dict(lo.reshape(T, QV), count.reshape(T, QV),
+                                fl.reshape(T, QV), torch.zeros_like(lo)
+                                .reshape(T, QV), gs, begin, Q, T)
+        cur["ext_over"] = torch.zeros((), dtype=torch.int64, device=dev)
+        return cur
+
+    def forced_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
+                    slot_rem, hits0, kmer_pos, kmer_frame, sbj_offsets,
+                    sbj_lens, trans_sbj, trans_q, red_sbj, subst_fwd,
+                    subst_rev, f_len, f_keep, bucket=None):
+        """Stream pass B (delta <= 1): forced stage 1 -> compaction ->
+        locate + prescore (stage 2 takes no decision in this mode)."""
+        cur = self._stage1_forced(keys, red_q, slot_frame, slot_begin,
+                                  f_len, f_keep, bucket)
+        return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
+                            sbj_lens, trans_sbj, trans_q, qlens, red_q,
+                            red_sbj, subst_fwd, subst_rev,
+                            (slot_frame, slot_begin, slot_rem), hits0)
+
+    def pigeon_count_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
+                          slot_rem, hits0, kmer_pos, kmer_frame,
+                          sbj_offsets, sbj_lens, trans_sbj, trans_q,
+                          red_sbj, subst_fwd, subst_rev, bucket=None):
+        """Stream pass A (delta >= 2): stage 1 + locate + verification,
+        emitting the shard-LOCAL per-slot verified-count matrix
+        (Q*T, E+1)."""
+        cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
+                          slot_rem, hits0, bucket)
+        return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
+                            sbj_lens, trans_sbj, trans_q, qlens, red_q,
+                            red_sbj, subst_fwd, subst_rev,
+                            (slot_frame, slot_begin, slot_rem), hits0,
+                            emit_cnt=True)
+
+    def pigeon_forced_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
+                           slot_rem, hits0, kmer_pos, kmer_frame,
+                           sbj_offsets, sbj_lens, trans_sbj, trans_q,
+                           red_sbj, subst_fwd, subst_rev, keep_dense,
+                           L_dense, bucket=None):
+        """Stream pass B (delta >= 2): the fused program with the global
+        decisions in place of the local ones."""
+        cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
+                          slot_rem, hits0, bucket)
+        return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
+                            sbj_lens, trans_sbj, trans_q, qlens, red_q,
+                            red_sbj, subst_fwd, subst_rev,
+                            (slot_frame, slot_begin, slot_rem), hits0,
+                            forced=(keep_dense, L_dense))
 
 
 def make_seeder(cfg: SeedConfig) -> Seeder:
     return Seeder(cfg)
+
+
+def make_stream_seeder(cfg: SeedConfig) -> dict:
+    """Database-streaming seeder: the seeding of ONE query batch over N
+    host-resident database shards streamed one after another through a
+    single device, with outputs byte-identical to one resident index.
+
+    Every decision a single index takes on its counts -- adaptive
+    elongation accept/revert, the desiredOccs/hitsThisSeq feedback, the
+    abundance cutoff (search_algo.hpp:679-729) -- consumes only per-shard
+    count SUMS, so: pass A per shard computes the local counts (curves for
+    delta <= 1, verified per-slot counts for pigeonhole), the caller
+    accumulates them on the device, ``decide`` replays the decisions once
+    on the sums, and pass B per shard locates and prescores with the
+    decisions FORCED.
+
+    Returns dict with keys pigeon (bool), pass_a, decide, pass_b, with
+    the signatures of the JAX package's passes.  The pipeline runs them
+    in SearchContext._stream_seed_call."""
+    s = Seeder(cfg)
+    if s.pigeon:
+        return dict(pigeon=True, pass_a=s.pigeon_count_pass,
+                    decide=s.pigeon_decide, pass_b=s.pigeon_forced_pass)
+    return dict(pigeon=False, pass_a=s.curve_pass, decide=s.curve_decide,
+                pass_b=s.forced_pass)

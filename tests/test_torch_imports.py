@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 VERBATIM = ["alphabets", "frames", "options", "scoring", "statistics",
             "stats", "io/__init__", "io/fasta", "io/async_buffer",
             "index/taxonomy", "search/records",
-            "output/blast_tab", "output/blast_report"]
+            "output/blast_tab", "output/blast_report",
+            "tools/__init__", "tools/merge_m8"]
 
 
 UPSTREAM = (b"/" + b"root/reference/src/", b"lambda/src/")

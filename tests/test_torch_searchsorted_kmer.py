@@ -136,6 +136,21 @@ def test_make_variants_matches_jax(k, delta, half):
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
 
 
-def test_pigeonhole_delta_not_ported():
-    with pytest.raises(NotImplementedError):
+def test_pigeonhole_delta_refused_by_variant_table_as_jax():
+    """delta >= 2 is pigeonhole seeding, not enumeration: both packages
+    refuse it with the same ValueError."""
+    with pytest.raises(ValueError) as want:
+        jk.variant_table(5, 2, 4, True)
+    with pytest.raises(ValueError) as got:
         tk.variant_table(5, 2, 4, True)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("delta", [2, 3])
+def test_pigeon_chunks_match_jax(delta):
+    for k in range(4, 25):
+        off, ln = tk.pigeon_chunks(k, delta)
+        joff, jln = jk.pigeon_chunks(k, delta)
+        assert off.dtype == joff.dtype and ln.dtype == jln.dtype
+        np.testing.assert_array_equal(off, joff)
+        np.testing.assert_array_equal(ln, jln)
