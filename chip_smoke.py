@@ -41,6 +41,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
                (its launches counted); per case the kernel's (R, W, P),
                ms, device_ms, plain ms, bound, GCUPS and share of the
                bound
+7b. mesh_step -- parallel/mesh.py:make_sharded_search_step, the fused
+               demo step (K4's search path), on make_demo_inputs (256
+               queries of 64, 256 subjects of 4,096) over grids 1x1, 1x4
+               and 2x2 laid on the one card: the same merged top-k and
+               db_total on every grid, seeds of every cell found in its
+               shard, K4's first launch per grid held exactly against its
+               plain version, K4 launches and the step's call ms
 8. golden   -- the port's CLI, mkindex + search of all 13 cases of
                tests/test_golden.py (BLASTP, BLASTN, BLASTX, TBLASTN,
                TBLASTX, bisulfite; m8, m9, m0, SAM) on the card, each
@@ -87,6 +94,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
                --db-stream 2, K1 held against its plain version on each;
                mkindexp --shards 4 searched with --shard-subset 0,1 and
                2,3, merged by tools/merge_m8.py into the full run's lines
+12b. card_cpu_mesh -- the device mesh on the card_cpu databases, its
+               cells all on the one card (SearchContext(devices=...)) and
+               on CPU cells: BLASTP --db-shards 2, --q-shards 2
+               --db-shards 2, --q-shards 4, mkindexp --shards 4 searched
+               with --db-shards 4, bisulfite --db-shards 2, BLASTP
+               --seed-delta 2 --db-shards 2, and BLASTP --db-shards 2
+               under the device trace (K2) and the sublane layout (K3):
+               card m8 == CPU m8 == the unsharded card run's, the switch's
+               kernel held against its plain version on its first launch;
+               the CLI's refusal of a grid larger than the visible cards
+               (the JAX package's message); two CLI processes on the card
+               with --shard-subset 0 and 1 joined by --distributed,
+               merged by merge_m8 into the full run's bytes
     trace_dir -- (in the scale phase) the BLASTP search again on the
                resident index with --trace-dir under build/: a non-empty
                chrome trace naming K1's kernel, the m8 unchanged
@@ -98,6 +118,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
                with --db-stream 4: byte-equal m8 unless a budget
                truncation was accepted (printed); q/s, split, hits
                located, overflow stats, retries, homolog share, K1 held
+15. scale_mesh -- the scale search over grids laid on the one card,
+               --db-shards 4 (1 x 4) and --q-shards 2 --db-shards 2
+               (2 x 2): m8 == the resident run's; q/s, split, K1 launches
+               per cell, K1 held, shard set-up seconds, device-memory
+               peak
 
 then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
 Kernel ``ms`` is the call as issued (CUDA events around the wrapper's
@@ -1462,15 +1487,294 @@ def phase_card_cpu_paths(tmp: Path, dev_info) -> dict:
     return {n: r["k1_launches"] for n, r in runs.items()}
 
 
+# the mesh_step phase's grids (q_shards, db_shards), all on the one card,
+# and its demo step: seeds of 7 over a 10-letter alphabet, so that random
+# seeds hit every db shard besides the planted queries
+MESH_GRIDS = ((1, 1), (1, 4), (2, 2))
+MESH_STEP_CFG = dict(seed_length=7, seeds_per_query=16, occ_cap=8,
+                     window=64, top_k=8)
+MESH_STEP_SIZE = dict(n_q=256, q_len=64, db_seq_len=4096, n_db_frames=256)
+
+
+def cell_seed_hits(cfg, red_q, shards, frames, q_shards: int) -> list:
+    """Per (q block, db shard) cell of a demo, the seeds of the block's
+    queries that occur in the shard's frames (numpy, independent of the
+    step): every seed of ``seed_length`` characters at multiples of
+    ``seed_offset``."""
+    k, A = cfg.seed_length, cfg.alphabet_size
+    w = A ** np.arange(k, dtype=np.int64)
+    starts = np.arange(cfg.seeds_per_query) * cfg.seed_offset
+    seeds = np.stack([red_q[:, s:s + k].astype(np.int64) @ w
+                      for s in starts], axis=1)                 # (Q, T)
+    blocks = np.array_split(seeds, q_shards)
+    out = []
+    for blk in blocks:
+        for _, fb, offs in shards:
+            kmers = set()
+            for f in frames[fb:fb + len(offs) - 1]:
+                if len(f) >= k:
+                    win = np.lib.stride_tricks.sliding_window_view(
+                        f.astype(np.int64), k)
+                    kmers.update((win @ w).tolist())
+            out.append(int(np.isin(blk, list(kmers)).sum()))
+    return out
+
+
+def phase_mesh_step(dev_info) -> dict:
+    """parallel/mesh.py:make_sharded_search_step, the fused demo step (K4's
+    path), on make_demo_inputs (256 queries of 64, 256 subjects of 4,096)
+    over grids 1x1, 1x4 and 2x2 laid on the one card: every grid's merged
+    top-k and db_total equal the 1x1 grid's, every cell has seeds that
+    occur in its shard, and K4's first launch of each grid is held
+    exactly against its plain version.  K4 launches (counted from 0
+    before each grid's step) and the step's call ms (its first call, and
+    the median of three more)."""
+    from lambda_tpu_torch.ops import sw_rect
+    from lambda_tpu_torch.parallel import mesh as pmesh
+
+    cfg = pmesh.StepConfig(**MESH_STEP_CFG)
+    frames, red_q, trans_q, subst = pmesh.make_demo_inputs(
+        cfg, **MESH_STEP_SIZE)
+    ref, cmp, launches = None, [], {}
+    for q, db in MESH_GRIDS:
+        m = pmesh.Mesh(["cuda:0"] * (q * db), q, db)
+        shards = pmesh.shard_index(frames, cfg.alphabet_size, db,
+                                   words=cfg.words)
+        st = pmesh.stack_shards(shards)
+        sbj, sbj_len = pmesh.demo_subjects(shards, frames)
+        args = (m.put_q(red_q), m.put_q(trans_q), m.put_db(st["keys"]),
+                m.put_db(st["pos"]), m.put_db(st["rows"]), m.put_db(sbj),
+                m.put_db(sbj_len), m.put_all(subst))
+        step = pmesh.make_sharded_search_step(m, cfg, st["keys"].shape[1])
+        with capture("_sw_score_cuda", first(1), sw_rect) as k4_in:
+            sw_rect.launches = 0                   # this path starts
+            (merged, total), step_ms = timed(lambda: step(*args))
+            n = sw_rect.launches                   # ... and ends
+        launches[f"{q}x{db}"] = n
+        got = (merged.cpu().numpy(), total.cpu().numpy())
+        step_median_ms = time_ms(lambda: step(*args), 3)
+        if ref is None:
+            ref = got
+        c = k4_compare(*k4_in[0][:5], dev_info)
+        cmp.append(c)
+        hits = cell_seed_hits(cfg, red_q, shards, frames, q)
+        same = all(np.array_equal(a, b) for a, b in zip(got, ref))
+        emit(phase="mesh_step", grid=[q, db], cells=q * db, k4_launches=n,
+             step_ms=step_ms, step_median_ms=step_median_ms,
+             merged_equal_1x1=same,
+             db_total=int(got[1][0, 0]), top1_max=int(got[0][:, 0].max()),
+             queries_with_hit=int((got[0][:, 0] > 0).sum()),
+             cell_seed_hits=hits,
+             k4_compare={k: c[k] for k in ("B", "M", "N", "exact_equal",
+                                           "ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")})
+        if not same:
+            raise SystemExit(f"mesh_step: the {q}x{db} grid's top-k or "
+                             "db_total differs from the 1x1 grid's")
+        if n != q * db or not c["exact_equal"] or min(hits) <= 0:
+            raise SystemExit(f"mesh_step {q}x{db}: K4 launched {n} times "
+                             f"for {q * db} cells, disagrees with its plain "
+                             f"version, or a cell has no hit ({hits})")
+    return dict(launches=sum(launches.values()), per_grid=launches, cmp=cmp)
+
+
+# the card_cpu_mesh phase's searches: name -> (database of an earlier
+# card_cpu phase, search subcommand, flags, switch, the unsharded card m8
+# of an earlier phase with the same flags but the grid's)
+CARD_CPU_MESH = {
+    "blastp_db2": ("small", "searchp", ["--db-shards", "2"], "default",
+                   "small_cuda.m8"),
+    "blastp_q2_db2": ("small", "searchp",
+                      ["--q-shards", "2", "--db-shards", "2"], "default",
+                      "small_cuda.m8"),
+    "blastp_q4": ("small", "searchp", ["--q-shards", "4"], "default",
+                  "small_cuda.m8"),
+    "blastp_prebuilt4_db4": ("small4", "searchp",
+                             ["-n", "500", "--db-shards", "4"], "default",
+                             "blastp_shards4_full_cuda.m8"),
+    "bisulfite_db2": ("bisulfite", "searchbs", ["--db-shards", "2"],
+                      "default", "bisulfite_cuda.m8"),
+    "blastp_delta2_db2": ("small", "searchp",
+                          ["--seed-delta", "2", "--db-shards", "2"],
+                          "default", "blastp_delta2_cuda.m8"),
+    "blastp_db2_device_trace": ("small", "searchp", ["--db-shards", "2"],
+                                "device_trace", "small_cuda.m8"),
+    "blastp_db2_sublane": ("small", "searchp", ["--db-shards", "2"],
+                           "sublane", "small_cuda.m8"),
+}
+# the wrapper of each switch's kernel, whose first launch is held
+SWITCH_WRAPPER = {"default": "_sw_band_score_cuda",
+                  "device_trace": "_sw_band_align_cuda",
+                  "sublane": "_sw_band_score_sub_cuda"}
+
+
+def mesh_search(se: str, argv: list, device: str, cells: int):
+    """One search through run_search with the CLI's options: on the card
+    the grid's cells all on cuda:0 (SearchContext(devices=...)), on the
+    CPU every cell on the CPU."""
+    from lambda_tpu_torch import cli
+    from lambda_tpu_torch.search import pipeline
+
+    opt, _ = cli.search_options(se, [str(a) for a in argv])
+    devices = ["cuda:0"] * cells if device == "cuda" and cells > 1 else None
+    return pipeline.run_search(opt, device=device, devices=devices)
+
+
+def phase_card_cpu_mesh(tmp: Path, dev_info) -> dict:
+    """The device mesh on the card_cpu databases: for each search of
+    CARD_CPU_MESH the grid laid on the one card and on CPU cells, both
+    m8 equal to each other and to the unsharded card run of an earlier
+    phase; the switch's kernel launched and held against its plain
+    version on its first launch.  Then the CLI's refusal of a mesh larger
+    than the visible cards (the JAX package's message), and two CLI
+    processes on the card, --shard-subset 0 and 1 of a two-shard index,
+    joined by --distributed: merged by merge_m8, the full run's bytes.
+    Returns each search's launches of its switch's kernel."""
+    import io
+
+    from lambda_tpu_torch import cli
+
+    dbs = {"small": (tmp / "small.lit", tmp / "small_q.fasta"),
+           "small4": (tmp / "small4.lit", tmp / "small_q.fasta"),
+           "bisulfite": (tmp / "bisulfite.lit", tmp / "bisulfite_q.fasta")}
+    launches, bad = {}, []
+    for name, (db, se, flags, mode, want) in CARD_CPU_MESH.items():
+        lit, q = dbs[db]
+        cells = 1
+        for f, v in zip(flags, flags[1:]):
+            if f in ("--q-shards", "--db-shards"):
+                cells *= int(v)
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = tmp / f"mesh_{name}_{dev}.m8"
+            argv = ["-q", q, "-i", lit, "-o", out, "-v", "0", *flags]
+            with switched(mode), capture(SWITCH_WRAPPER[mode], first(1)) \
+                    as k_in:
+                reset_band_launches()              # this path starts
+                t0 = time.perf_counter()
+                mesh_search(se, argv, dev, cells)
+                secs[dev] = round(time.perf_counter() - t0, 3)
+                n = band_launches()[MODES[mode]]   # ... and ends
+            outs[dev] = out.read_bytes()
+            if dev == "cuda":
+                launches[name], kin = n, k_in
+        if mode == "device_trace":
+            cmp = [k2_compare(*x, dev_info) for x in kin]
+        else:
+            cmp = [k1_compare(*x[:7], dev_info, reps=3, plain_reps=0,
+                              kernel="K3" if mode == "sublane" else "K1",
+                              **({} if mode == "sublane" else
+                                 dict(x_drop=x[7], nc=x[8])))
+                   for x in kin]
+        unsharded = (tmp / want).read_bytes()
+        ok = (outs["cuda"] == outs["cpu"] == unsharded
+              and outs["cuda"].strip() and launches[name] > 0 and cmp
+              and all(c["exact_equal"] for c in cmp))
+        emit(phase="card_cpu_mesh", search=name, flags=flags, cells=cells,
+             switch=mode, m8_equal_cpu=outs["cuda"] == outs["cpu"],
+             m8_equal_unsharded=outs["cuda"] == unsharded,
+             m8_lines=outs["cuda"].count(b"\n"), seconds=secs,
+             kernel_launches=launches[name],
+             kernel_compare=[{k: c[k] for k in ("B", "N", "D",
+                                                "exact_equal", "ms",
+                                                "plain_ms", "bound_ms")}
+                             for c in cmp])
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise SystemExit(f"card_cpu_mesh: mesh m8 differs (card, CPU, "
+                         f"unsharded), is empty, or its kernel was not "
+                         f"launched or not exact: {bad}")
+
+    # a grid larger than the visible cards: refused as the JAX package
+    # refuses it, with no fallback
+    n_cards = torch.cuda.device_count()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["searchp", "-q", str(tmp / "small_q.fasta"), "-i",
+                       str(tmp / "small.lit"), "-o",
+                       str(tmp / "refused.m8"), "-v", "0", "--db-shards",
+                       str(n_cards + 1)])
+    want_err = (f"ERROR: --q-shards 1 x --db-shards {n_cards + 1} needs "
+                f"{n_cards + 1} devices; only {n_cards} available.\n")
+    emit(phase="card_cpu_mesh", search="refusal", rc=rc,
+         stderr=err.getvalue(), expected=want_err)
+    if rc != 1 or err.getvalue() != want_err:
+        raise SystemExit("card_cpu_mesh: the CLI did not refuse a mesh "
+                         "larger than the visible cards as expected")
+    dist = distributed_runs(tmp)
+    launches["distributed"] = dist
+    return launches
+
+
+def distributed_runs(tmp: Path) -> dict:
+    """mkindexp --shards 2 of the card_cpu BLASTP database; the full run
+    on the card (default -n 25), then two concurrent CLI processes on the
+    card, one --shard-subset each, joined into one torch.distributed
+    group (gloo, a free local port), merged by merge_m8 (annotated, the
+    query file's order, -n 25) into the full run's bytes."""
+    import socket
+
+    from lambda_tpu_torch.tools import merge_m8
+
+    lit2, q = tmp / "small2.lit", tmp / "small_q.fasta"
+    run_cli("mkindexp", "-d", tmp / "small.fasta", "-i", lit2, "-v", "0",
+            "--shards", "2")
+    full = tmp / "dist_full.m8"
+    run_cli("searchp", "-q", q, "-i", lit2, "-o", full, "-v", "0")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for pid in (0, 1):
+        out = tmp / f"dist_host{pid}.m8"
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "lambda_tpu_torch.cli", "searchp",
+             "-q", str(q), "-i", str(lit2), "-o", str(out),
+             "--shard-subset", str(pid), "-n", "1000000",
+             "--distributed", f"127.0.0.1:{port},{pid},2", "-v", "0"],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    rcs, errs = [], []
+    try:
+        for p in procs:
+            _, e = p.communicate(timeout=300)
+            rcs.append(p.returncode)
+            errs.append(e[-2000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = round(time.perf_counter() - t0, 3)
+    if any(rcs):
+        raise SystemExit(f"the --distributed processes exited {rcs}: {errs}")
+    merged = tmp / "dist_merged.m8"
+    merge_m8.merge([str(o) for o in outs], str(merged), max_matches=25,
+                   query_order=merge_m8._read_query_ids(str(q)))
+    same = merged.read_bytes() == full.read_bytes()
+    lines = [o.read_bytes().count(b"\n") for o in outs]
+    emit(phase="card_cpu_mesh", search="distributed", processes=2,
+         host_lines=lines, seconds=secs, merged_equal_full=same,
+         full_lines=full.read_bytes().count(b"\n"))
+    if not same or not all(lines):
+        raise SystemExit("the merged --distributed outputs differ from the "
+                         "full run's bytes (or a host wrote nothing)")
+    return dict(host_lines=lines, seconds=secs)
+
+
 PHASE_KEYS = ("seed", "locate", "merge", "extend", "extend_trace", "write")
 
 
-def main_search(opt) -> dict:
-    """run_search on the card, with the hooks of this script only: the
-    resident bytes and the time at which SearchContext is ready (index
-    read and uploaded), the context itself (for the reruns), and the
-    inputs of the first three K1 launches.  Its K1 launches are counted
-    from 0."""
+def main_search(opt, devices=None) -> dict:
+    """run_search on the card (``devices``: the mesh's cells), with the
+    hooks of this script only: the resident bytes and the time at which
+    SearchContext is ready (index read and uploaded), the context itself
+    (for the reruns), and the inputs of the first three K1 launches.
+    Its K1 launches are counted from 0."""
     from lambda_tpu_torch.ops import sw_band
     from lambda_tpu_torch.search import pipeline
 
@@ -1490,7 +1794,8 @@ def main_search(opt) -> dict:
             torch.cuda.reset_peak_memory_stats()
             reset_band_launches()                  # the main path starts
             t0 = time.perf_counter()
-            rec["stats"] = pipeline.run_search(opt, device="cuda")
+            rec["stats"] = pipeline.run_search(opt, device="cuda",
+                                               devices=devices)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             rec["launches"] = sw_band.launches     # ... and ends
@@ -1663,15 +1968,16 @@ def counting(cls, name: str):
 
 
 def scale_opt(tmp: Path, out: Path, stream: int = 1,
-              delta: int | None = None):
-    """The scale phase's searchp options (default), with --db-stream and
-    --seed-delta as given."""
+              delta: int | None = None, grid=(1, 1)):
+    """The scale phase's searchp options (default), with --db-stream,
+    --seed-delta and (--q-shards, --db-shards) as given."""
     from lambda_tpu_torch import options as opt_mod
 
     opt = opt_mod.make_search_options(
         opt_mod.Domain.PROTEIN, query_file=str(tmp / "big_q.fasta"),
         index_file=str(tmp / "big.lit"), output=str(out), verbosity=0)
     opt.db_stream = stream
+    opt.q_shards, opt.db_shards = grid
     if delta is not None:
         opt.search_opts.max_seed_dist = delta
     return opt
@@ -1690,11 +1996,17 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     def phase2_walk(a, captured):      # the first walk of phase 2's seeds
         return not captured and a[0].max_seed_dist == delta
 
+    from lambda_tpu_torch.parallel import mesh as pmesh
+
+    q, db = kw.get("grid", (1, 1))
+    devices = ["cuda:0"] * (q * db) if q * db > 1 else None
     gc.collect()                       # the previous context is gone
     torch.cuda.empty_cache()
     with counting(pipeline.SearchContext, "_next_scale") as retries, \
-            capture("_slot_walk", phase2_walk, seeding) as walk_in:
-        rec = main_search(scale_opt(tmp, out, **kw))
+            capture("_slot_walk", phase2_walk, seeding) as walk_in, \
+            cell_calls(pmesh.ShardedBandScorer) as per_cell, \
+            timing(pipeline.SearchContext, "_mesh_setup") as setup_s:
+        rec = main_search(scale_opt(tmp, out, **kw), devices)
     ctx, stats = rec.pop("ctx"), rec["stats"]
     peak = torch.cuda.max_memory_allocated()
     cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
@@ -1728,6 +2040,14 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
                               for k, v in up.items()}
         r["shard_host_bytes"] = sum(t.numel() * t.element_size()
                                     for t in ctx.stream_sh.values())
+    if ctx.mesh is not None:
+        r["grid"] = [q, db]
+        r["mesh_setup_s"] = round(setup_s[0], 3)
+        r["k1_launches_per_cell"] = [per_cell.get(c, 0)
+                                     for c in range(q * db)]
+        r["mesh_device_bytes"] = sum(
+            t.numel() * t.element_size() for name, cells in ctx.d_sh.items()
+            if cells is not None for t in {id(x): x for x in cells}.values())
     del ctx
     if rec["launches"] <= 0:
         raise SystemExit(f"the scale search {kw} launched K1 no time")
@@ -1735,6 +2055,45 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
         raise SystemExit(f"K1 disagrees with its plain version on the "
                          f"scale search {kw}")
     return dict(r, cmp=cmp)
+
+
+@contextlib.contextmanager
+def timing(cls, name: str):
+    """The seconds of the calls of method ``name`` of ``cls``, the card
+    synchronised after each (the mesh's shard set-up)."""
+    meth = getattr(cls, name)
+    secs = [0.0]
+
+    def hook(*a, **kw):
+        t0 = time.perf_counter()
+        out = meth(*a, **kw)
+        torch.cuda.synchronize()
+        secs[0] += time.perf_counter() - t0
+        return out
+
+    setattr(cls, name, hook)
+    try:
+        yield secs
+    finally:
+        setattr(cls, name, meth)
+
+
+@contextlib.contextmanager
+def cell_calls(cls):
+    """Counts the calls of ``cls.cell`` per cell index: the mesh's pass-1
+    launches per cell (parallel/mesh.py:ShardedBandScorer)."""
+    meth = cls.cell
+    calls: dict = {}
+
+    def hook(self, c, *a):
+        calls[c] = calls.get(c, 0) + 1
+        return meth(self, c, *a)
+
+    cls.cell = hook
+    try:
+        yield calls
+    finally:
+        cls.cell = meth
 
 
 def slot_walk_cost(walk, args) -> dict:
@@ -1800,6 +2159,32 @@ def phase_scale_pigeon(tmp: Path, dev_info, n_q=1024) -> dict:
     if not same and not truncated:
         raise SystemExit("--seed-delta 2: the streamed m8 differs from the "
                          "resident one with no budget truncation")
+    return runs
+
+
+def phase_scale_mesh(tmp: Path, dev_info, resident_peak: int,
+                     n_q=1024) -> dict:
+    """The scale phase's BLASTP search, nothing cut, over two grids laid on
+    the one card: --db-shards 4 as 1 x 4 cells and --q-shards 2
+    --db-shards 2 as 2 x 2.  Each m8 must equal the resident run's; q/s,
+    the split, K1's launches per cell and K1 against its plain version on
+    the first launches, the shard set-up seconds and the device-memory
+    peak (each shard is placed on the card once, not once per cell)."""
+    runs = {}
+    for grid in ((1, 4), (2, 2)):
+        out = tmp / f"big_mesh_{grid[0]}x{grid[1]}.m8"
+        r = scale_run(tmp, dev_info, out, n_q, grid=grid)
+        same = out.read_bytes() == (tmp / "big.m8").read_bytes()
+        emit(phase="scale_mesh", queries=n_q, m8_equal_resident=same,
+             resident_peak_device_bytes=resident_peak,
+             **{k: v for k, v in r.items() if k != "cmp"})
+        if not same:
+            raise SystemExit(f"the {grid} mesh m8 differs from the resident "
+                             "run's")
+        if min(r["k1_launches_per_cell"]) <= 0:
+            raise SystemExit(f"a cell of the {grid} mesh launched K1 no "
+                             "time")
+        runs[grid] = r
     return runs
 
 
@@ -2029,6 +2414,7 @@ def main() -> int:
     k3 = phase_k3(dev_info)
     phase_grid(dev_info)
     k4 = phase_k4(dev_info)
+    mstep = phase_mesh_step(dev_info)
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
         tmp = Path(d)
@@ -2037,10 +2423,12 @@ def main() -> int:
         phase_card_cpu_xdrop(tmp)
         modes = phase_card_cpu_modes(tmp, dev_info)
         paths = phase_card_cpu_paths(tmp, dev_info)
+        cmesh = phase_card_cpu_mesh(tmp, dev_info)
         scale = phase_scale(tmp, dev_info)
         blastx = phase_scale_blastx(tmp, dev_info)
         stream = phase_scale_stream(tmp, dev_info, scale["peak"])
         pigeon = phase_scale_pigeon(tmp, dev_info)
+        smesh = phase_scale_mesh(tmp, dev_info, scale["peak"])
     reruns = scale["reruns"]
     bx_reruns = {m: dict(cmp=r["cmp"], launches=r["launches"])
                  for m, r in blastx["reruns"].items()}
@@ -2067,25 +2455,41 @@ def main() -> int:
                                scale_stream=stream["k1_launches"],
                                scale_pigeon=pigeon[1]["k1_launches"],
                                scale_pigeon_stream=pigeon[4]["k1_launches"],
-                               trace_dir=scale["trace_launches"])),
+                               trace_dir=scale["trace_launches"],
+                               **{f"card_cpu_mesh_{n}": v
+                                  for n, v in cmesh.items()
+                                  if n in CARD_CPU_MESH
+                                  and CARD_CPU_MESH[n][3] == "default"},
+                               **{f"scale_mesh_{q}x{d}":
+                                  r["k1_launches_per_cell"]
+                                  for (q, d), r in smesh.items()}),
+            mesh=cmp_sums(smesh[(1, 4)]["cmp"],
+                          smesh[(1, 4)]["k1_launches"])),
         kernel_entry(
             "K2 sw_band_dirs", "lambda_tpu_torch/csrc/sw_band_dirs.cu",
             "lambda_tpu/ops/sw_band.py:277 _make_band_dirs_kernel",
             reruns["device_trace"]["launches"], k2["worst"],
             reruns["device_trace"]["cmp"],
             blastx=cmp_sums(**bx_reruns["device_trace"]),
-            path_launches=dict(golden=golden["device_trace"])),
+            path_launches=dict(
+                golden=golden["device_trace"],
+                card_cpu_mesh=cmesh["blastp_db2_device_trace"])),
         kernel_entry(
             "K3 sw_band_sub", "lambda_tpu_torch/csrc/sw_band_sub.cu",
             "lambda_tpu/ops/sw_band.py:728 _make_band_kernel",
             reruns["sublane"]["launches"], k3["worst"],
             reruns["sublane"]["cmp"], bench_shape=bench(k3["bench"]),
             blastx=cmp_sums(**bx_reruns["sublane"]),
-            path_launches=dict(golden=golden["sublane"])),
+            path_launches=dict(
+                golden=golden["sublane"],
+                card_cpu_mesh=cmesh["blastp_db2_sublane"])),
         kernel_entry(
             "K4 sw_rect", "lambda_tpu_torch/csrc/sw_rect.cu",
             "lambda_tpu/ops/sw_pallas.py:118 _make_kernel",
-            k4["launches"], 0, k4["rows"]),
+            mstep["launches"], 0, mstep["cmp"],
+            path="mesh_step (parallel/mesh.py:make_sharded_search_step)",
+            path_launches=mstep["per_grid"],
+            op_cases=cmp_sums(k4["rows"], k4["launches"])),
     ])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),

@@ -4,11 +4,12 @@ The parser is the JAX package's (the reference's subcommand surface,
 ``lambda/src/lambda.cpp:88-118``, with its flag names), plus
 ``--device {cuda,cpu}`` on the three search subcommands.  All six
 subcommands run (searchp/searchn/searchbs, mkindexp/mkindexn/mkindexbs),
-with m8/m9/m0/SAM/BAM output, seed delta 0-3, ``--db-stream``,
-``--shard-subset`` (per-host outputs merged with
-``python -m lambda_tpu_torch.tools.merge_m8``) and ``--trace-dir``; the
-device mesh (``--db-shards``/``--q-shards`` > 1) and ``--distributed``
-exit with a "not yet ported" error.
+with m8/m9/m0/SAM/BAM output, seed delta 0-3, ``--db-stream``, the
+device mesh (``--db-shards``/``--q-shards``: a grid of the visible cards,
+or of CPU cells with ``--device cpu``), ``--shard-subset`` (per-host
+outputs merged with ``python -m lambda_tpu_torch.tools.merge_m8``),
+``--distributed`` (a torch.distributed group on gloo) and
+``--trace-dir``.
 
     python -m lambda_tpu_torch.cli mkindexp -d db.fasta -i db.lit
     python -m lambda_tpu_torch.cli searchp -q q.fasta -i db.lit -o out.m8 \
@@ -161,6 +162,20 @@ def mkindex_main(sub: str, argv: list[str]) -> int:
 
 
 def search_main(sub: str, argv: list[str]) -> int:
+    opt, device = search_options(sub, argv)
+    from .search.pipeline import run_search
+
+    t0 = time.time()
+    stats = run_search(opt, device=device)
+    _my_print(opt.verbosity, 2, f"Runtime total: {time.time()-t0:.2f}s")
+    if opt.verbosity >= 1:
+        stats.print_report(opt)
+    return 0
+
+
+def search_options(sub: str, argv: list[str]):
+    """The options of search subcommand ``sub`` from its arguments:
+    (LambdaOptions, device)."""
     p = argparse.ArgumentParser(prog=f"lambda-tpu-torch {sub}")
     p.add_argument("-q", "--query", required=True)
     p.add_argument("-i", "--index", required=True)
@@ -175,17 +190,18 @@ def search_main(sub: str, argv: list[str]) -> int:
     p.add_argument("-t", "--threads", type=int, default=None)
     p.add_argument("--db-shards", type=int, default=1,
                    help="shard the database index over this many devices "
-                        "of the mesh (not yet ported)")
+                        "of the mesh (data-parallel queries, top-k hit "
+                        "merge)")
     p.add_argument("--q-shards", type=int, default=1,
                    help="data-parallel query batches over this many "
-                        "devices (not yet ported)")
+                        "devices (mesh is q-shards x db-shards)")
     p.add_argument("--db-stream", type=int, default=1,
                    help="stream the database through ONE device as this "
                         "many sequential host-resident shards per query "
                         "batch — for databases larger than device "
                         "memory (only host RAM bounds the index, like "
                         "the reference); output bytes are identical to "
-                        "the resident index's")
+                        "--db-shards N")
     p.add_argument("--trace-dir", default="", metavar="DIR",
                    help="write a torch.profiler trace of the search loop "
                         "to DIR (a chrome trace)")
@@ -206,7 +222,7 @@ def search_main(sub: str, argv: list[str]) -> int:
     p.add_argument("--distributed", default="", metavar="ADDR,PID,N",
                    help="multi-process init: coordinator address, this "
                         "process id, total process count "
-                        "(not yet ported)")
+                        "(torch.distributed, gloo)")
     p.add_argument("-v", "--verbosity", type=int, default=1, choices=(0, 1, 2))
     p.add_argument("--adaptive-seeding", default="1", choices=("0", "1"))
     p.add_argument("--seed-half-exact", default="1", choices=("0", "1"))
@@ -350,15 +366,7 @@ def search_main(sub: str, argv: list[str]) -> int:
     if (args.merge_annotations == "auto" and opt.shard_subset is not None
             and opt.out_file_format == 0):
         opt.merge_annotations = True
-
-    from .search.pipeline import run_search
-
-    t0 = time.time()
-    stats = run_search(opt, device=args.device)
-    _my_print(opt.verbosity, 2, f"Runtime total: {time.time()-t0:.2f}s")
-    if opt.verbosity >= 1:
-        stats.print_report(opt)
-    return 0
+    return opt, args.device
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Search pipeline (one CUDA device, index resident on it).
+"""Search pipeline (the index resident on one CUDA device, streamed
+through it, or sharded over a (q, db) grid of devices).
 
 Port of ``lambda_tpu/search/pipeline.py``, the equivalent of the
 reference's search ``realMain`` + per-batch loop
@@ -26,9 +27,14 @@ package runs: BLASTP, BLASTX, TBLASTN, TBLASTX, BLASTN and bisulfite
 index on the host as N shards streamed through the card per query batch
 (search/seeding.py:make_stream_seeder), ``--shard-subset`` searches a
 host's slice of a sharded index (tools/merge_m8.py merges the slices),
-and ``--trace-dir`` records a torch.profiler trace of the search loop.
-The device mesh (``--db-shards``/``--q-shards``) and ``--distributed``
-raise "not yet ported".
+``--trace-dir`` records a torch.profiler trace of the search loop.
+``--db-shards``/``--q-shards`` shard the index and the query batch over a
+(q, db) grid of devices in this one process (parallel/mesh.py: the
+seeding per cell with its decisions summed over each q row, pass 1 per
+cell on the cell's local subject shard; ``SearchContext(devices=...)``
+may lay several cells on one card), and ``--distributed ADDR,PID,N``
+joins the process to a torch.distributed group (gloo) for a multi-host
+run whose hosts each search a ``--shard-subset``.
 """
 
 from __future__ import annotations
@@ -109,17 +115,19 @@ class _SeedDispatch:
     res2: dict | None = None   # fused seeding outputs (device tensors)
     stream_decided: tuple | None = None  # db-stream global decisions
     stream_outs: list | None = None      # db-stream per-shard pass-B outputs
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to "
-                               "lambda_tpu_torch")
+    mesh_outs: list | None = None        # device mesh per-cell outputs
 
 
 class SearchContext:
     """Everything that is fixed for a whole run."""
 
-    def __init__(self, opt: opt_mod.LambdaOptions, device="cuda"):
+    def __init__(self, opt: opt_mod.LambdaOptions, device="cuda",
+                 devices=None):
+        """``device``: where the index and the query batches live (the
+        mesh's cells: every visible card for 'cuda', else ``device`` in
+        every cell).  ``devices``: the mesh's cells explicitly, row-major
+        (cell (i, j) at ``i * db_shards + j``); a device may repeat, so
+        one card can hold a whole grid."""
         self.opt = opt
         self.device = torch.device(device)
         self.db_shards = max(1, int(getattr(opt, "db_shards", 1)))
@@ -147,10 +155,24 @@ class SearchContext:
             raise RuntimeError("--db-stream does not support "
                                "--shard-subset; load the full index on "
                                "this host (it only needs host RAM).")
-        if self.db_shards * self.q_shards > 1:
-            raise _not_ported("the --db-shards/--q-shards device mesh")
-        if getattr(opt, "distributed", ""):
-            raise _not_ported("--distributed")
+        self.mesh = None
+        n_dev = self.q_shards * self.db_shards
+        if n_dev > 1:
+            from ..parallel import mesh as pmesh
+
+            if devices is None:
+                devices = ([torch.device("cuda", k) for k in
+                            range(torch.cuda.device_count())]
+                           if self.device.type == "cuda"
+                           else [self.device] * n_dev)
+            if len(devices) < n_dev:
+                raise RuntimeError(
+                    f"--q-shards {self.q_shards} x --db-shards "
+                    f"{self.db_shards} needs {n_dev} devices; only "
+                    f"{len(devices)} available.")
+            self.mesh = pmesh.Mesh(list(devices)[:n_dev], self.q_shards,
+                                   self.db_shards)
+            self.device = self.mesh.devices[0]
 
         self.idx = artifact.load_index(opt.index_file,
                                        shards=self.shard_subset)
@@ -220,11 +242,13 @@ class SearchContext:
             self.ka_params, idx.db_total_length, self.program.q_translated)
 
         # device coordinates of the subject concat are int32-bounded in
-        # the JAX package, per SHARD under streaming; keep the same limit
-        # so both accept the same DBs.  Shards split subjects by COUNT
-        # (np.array_split: parallel/mesh.py and the mkindex --shards
-        # bounds), so bound the MAX per-shard length, not the average.
-        if self.db_stream <= 1:
+        # the JAX package, per SHARD under streaming or the mesh; keep the
+        # same limit so both accept the same DBs.  Shards split subjects
+        # by COUNT (np.array_split: parallel/mesh.py and the mkindex
+        # --shards bounds), so bound the MAX per-shard length, not the
+        # average.
+        n_split = max(self.db_shards, self.db_stream)
+        if n_split <= 1:
             max_shard_len = int(idx.db_total_length)
         elif idx.shard_subj_bounds is not None:
             b = np.asarray(idx.shard_subj_bounds, dtype=np.int64)
@@ -237,8 +261,7 @@ class SearchContext:
         else:
             tl = np.asarray(idx.trans_lengths, dtype=np.int64)
             per_subj = tl.reshape(-1, idx.sbj_num_frames).sum(axis=1)
-            groups = np.array_split(np.arange(len(per_subj)),
-                                    self.db_stream)
+            groups = np.array_split(np.arange(len(per_subj)), n_split)
             max_shard_len = max(
                 (int(per_subj[g].sum()) for g in groups if len(g)),
                 default=0)
@@ -256,7 +279,9 @@ class SearchContext:
         self._check_device_memory()
         self._d_red_sbj = None
         self.stream_sh = None
-        if self.db_stream <= 1:
+        if self.mesh is not None:
+            self._mesh_setup()
+        elif self.db_stream <= 1:
             d = resident_index(index_arrays(
                 idx, self.bucket_m,
                 allow_partial=self.shard_subset is not None), self.device)
@@ -311,15 +336,16 @@ class SearchContext:
     def _check_device_memory(self):
         """Pre-flight device-memory estimate (device-side analogue of
         checkRAM, search_algo.hpp:126-155): warn when the resident index
-        -- under --db-stream N, one shard of it -- likely exceeds the
-        card's memory."""
+        -- under --db-stream N or --db-shards N, one shard of it -- likely
+        exceeds the card's memory."""
         if self.device.type != "cuda":
             return
         idx = self.idx
         kms = [idx.kmer] if idx.kmer is not None else idx.kmer_shards
         # int64 keys, int32 pos and frame, the int8 subject concat
         need = (sum(k.keys.size * 8 + k.pos.size * 8 for k in kms)
-                + len(idx.trans_concat)) // self.db_stream
+                + len(idx.trans_concat)) // max(self.db_shards,
+                                                self.db_stream)
         _, total = torch.cuda.mem_get_info(self.device)
         if need > 0.9 * total and self.opt.verbosity >= 1:
             print(f"WARNING: the device-resident index needs ~{need >> 20} "
@@ -377,6 +403,47 @@ class SearchContext:
         # seconds of the shard uploads of each pass A and pass B (with
         # LAMBDA_STREAM_SYNC on, the default: the copies alone)
         self.stream_upload_s = {"pass_a": [], "pass_b": []}
+
+    def _mesh_setup(self):
+        """--db-shards/--q-shards: the index split into db_shards
+        subject-contiguous shards (a sharded artifact with that many shards
+        feeds them directly), each shard's tensors placed on every
+        distinct device of its db column once (parallel/mesh.py:
+        Mesh.put_db), with its first-word prefix table.  The subject
+        concat stays on the host too: pass 2 gathers its windows there,
+        as under --db-stream."""
+        from ..parallel import mesh as pmesh
+
+        idx = self.idx
+        if idx.kmer_shards and len(idx.kmer_shards) == self.db_shards:
+            sh = pmesh.shard_prebuilt_index(idx, self._reduced_concat())
+        else:
+            sh = pmesh.shard_loaded_index(
+                idx.get_kmer(allow_partial=self.shard_subset is not None),
+                idx.trans_concat, self._reduced_concat(), idx.trans_offsets,
+                idx.trans_lengths, self.db_shards,
+                frames_per_subject=self.sbj_num_frames)
+        self.shard_base = sh["base"].astype(np.int64)
+        m = self.mesh
+        bucket = None
+        if self.bucket_m:
+            bucket = m.put_db(np.stack([
+                ss.prefix_table(sh["keys"][i, :, 0], idx.kmer_meta.bits,
+                                self.bucket_m)
+                for i in range(sh["keys"].shape[0])]), torch.int64)
+        self.d_sh = dict(
+            keys=m.put_db(sh["keys"]), pos=m.put_db(sh["pos"]),
+            frame=m.put_db(sh["frame"]),
+            offsets=m.put_db(sh["offsets"], torch.int64),
+            lengths=m.put_db(sh["lengths"], torch.int64),
+            trans=m.put_db(sh["trans"]), red=m.put_db(sh["red"]),
+            bucket=bucket)
+        del sh
+        self.d_trans_sbj = torch.from_numpy(idx.trans_concat.view(np.int8))
+        self.d_sbj_offsets = torch.from_numpy(
+            idx.trans_offsets[:-1].astype(np.int64))
+        self.d_sbj_lens = torch.from_numpy(
+            idx.trans_lengths.astype(np.int64))
 
     def _reduced_concat(self) -> np.ndarray:
         """Host reduced-alphabet subject concat (redView over the subject,
@@ -468,6 +535,71 @@ class SearchContext:
                 self.seeder_for(so, scale).cfg)
         return self._stream_seeders[key]
 
+    def _sharded_scores(self, m, d_trans_q, gf: int, ge: int,
+                        stats=None) -> np.ndarray:
+        """Pass-1 banded scores over the (q, db) grid: matches are
+        partitioned by (query block, subject shard) cell and bucketed by
+        (qlen, band, matrix) shape class; per class every cell gathers its
+        windows from its LOCAL subject shard and scores them, one launch
+        per (cell, class).  A cell's rows keep the class's match order;
+        rows past a cell's count pad it to the class's largest cell, with
+        qry_len 0 and d_row -1 (score 0, never read)."""
+        from ..parallel import mesh as pmesh
+
+        n = len(m)
+        scores = np.zeros(n, dtype=np.int64)
+        if n == 0:
+            return scores
+        mesh = self.mesh
+        Qm, Dm = mesh.shape
+        q_rows = int(d_trans_q.shape[0]) // Qm
+        qlen, d_row, _ = extend._ext_geometry(m)
+        qsh = m.qry_id // q_rows
+        dsh = np.searchsorted(self.shard_base, m.subj_id, side="right") - 1
+        rev = (m.subj_id % 2 == 1) if self.bs_mode \
+            else np.zeros(n, dtype=bool)
+        trans_q = mesh.put_q(d_trans_q)
+        e8 = {r: mesh.put_all(self.e8_rev if r else self.e8_fwd)
+              for r in set(rev.tolist())}
+        names = ("qry_id", "qry_start", "qry_len", "subj_id", "d_lo",
+                 "d_row")
+        pending = []          # launch every class first, then sync once
+        for (qbk, dbk, r), idxs in sorted(
+                extend.bucket_groups(qlen, d_row, rev).items()):
+            idxs = np.asarray(idxs)
+            if stats is not None:
+                stats.ext_dispatches += 1
+                stats.ext_dispatch_rows += len(idxs)
+            a, b = qsh[idxs], dsh[idxs]
+            cell = a * Dm + b
+            Bp = max(int(np.bincount(cell, minlength=Qm * Dm).max()), 1)
+            # within-cell slot of every match: its rank under a stable
+            # sort by cell (the class's order within each cell)
+            order = np.argsort(cell, kind="stable")
+            first = np.r_[0, np.flatnonzero(np.diff(cell[order])) + 1]
+            rank = np.arange(len(order)) \
+                - np.repeat(first, np.diff(np.r_[first, len(order)]))
+            p = np.empty(len(idxs), dtype=np.int64)
+            p[order] = rank
+            arrs = {k: np.zeros((Qm, Dm, Bp), dtype=np.int32)
+                    for k in names}
+            arrs["d_row"][:] = -1
+            arrs["qry_id"][a, b, p] = m.qry_id[idxs] - a * q_rows
+            arrs["qry_start"][a, b, p] = m.qry_start[idxs]
+            arrs["qry_len"][a, b, p] = qlen[idxs]
+            arrs["subj_id"][a, b, p] = m.subj_id[idxs] - self.shard_base[b]
+            arrs["d_lo"][a, b, p] = m.d_lo[idxs]
+            arrs["d_row"][a, b, p] = d_row[idxs]
+            out = pmesh.make_sharded_band_scorer(mesh, qbk + dbk, dbk, gf,
+                                                 ge)(
+                trans_q, self.d_sh["trans"], self.d_sh["offsets"],
+                self.d_sh["lengths"], *(mesh.put_cells(arrs[k])
+                                        for k in names), e8[r])
+            pending.append((idxs, cell, p, out))
+        for idxs, cell, p, out in pending:
+            scores[idxs] = np.stack([o.cpu().numpy() for o in out])[cell, p]
+        return scores
+
     # -----------------------------------------------------------------
     # per-batch processing (one phase)
     # -----------------------------------------------------------------
@@ -558,6 +690,8 @@ class SearchContext:
         """Run the fused seeding for ``sd`` at its current budget scale."""
         if self.db_stream > 1:
             return self._stream_seed_call(sd, stats)
+        if self.mesh is not None:
+            return self._mesh_seed_call(sd, stats)
         seeder = self.seeder_for(sd.so, sd.scale)
         dev = self.device
         with stats.timed("time_seed"):
@@ -571,6 +705,27 @@ class SearchContext:
                 self.d_sbj_lens, self.d_trans_sbj, sd.d_trans_q,
                 self.d_sub_fwd, self.d_sub_rev, self.d_bucket,
                 red_sbj=self.d_red_sbj if seeder.pigeon else None)
+
+    def _mesh_seed_call(self, sd: _SeedDispatch, stats: StatsHolder):
+        """The seeding of one batch over the (q, db) grid
+        (parallel/mesh.py:make_sharded_seeder): the query batch in q
+        blocks, each cell's tensors resident, nothing uploaded per pass;
+        budgets per cell."""
+        from ..parallel import mesh as pmesh
+
+        m = self.mesh
+        step = pmesh.make_sharded_seeder(m, self.seeder_for(sd.so, sd.scale))
+        with stats.timed("time_seed"):
+            outs = step(
+                *(self.d_sh[k] for k in ("keys", "pos", "frame", "offsets",
+                                         "lengths", "trans", "red")),
+                m.put_q(sd.d_red_q), m.put_q(sd.d_qlens),
+                m.put_q(sd.slot_frame), m.put_q(sd.slot_begin),
+                m.put_q(sd.slot_rem), m.put_q(np.zeros(sd.Q, np.int64)),
+                m.put_q(sd.d_trans_q), m.put_all(self.d_sub_fwd),
+                m.put_all(self.d_sub_rev), self.d_sh["bucket"])
+            sd.mesh_outs = [{k: r[k] for k in ("packed", "stats_vec")}
+                            for r in outs]
 
     def _shard_tensors(self, i: int, sync: bool):
         """Shard ``i`` on the device: (keys, pos, frame, offsets, lengths,
@@ -669,10 +824,11 @@ class SearchContext:
         # budgets are accepted, as a bucketed slice of the 16-byte packed
         # rows
         while True:
-            if self.db_stream > 1:
+            parts = sd.stream_outs if self.db_stream > 1 else sd.mesh_outs
+            if parts is not None:
+                # per shard (streaming) or per cell (mesh)
                 with stats.timed("time_locate"):
-                    svs = [r["stats_vec"].cpu().numpy()
-                           for r in sd.stream_outs]
+                    svs = [r["stats_vec"].cpu().numpy() for r in parts]
                 sv = np.stack(svs).astype(np.int64).sum(axis=0)
             else:
                 with stats.timed("time_locate"):
@@ -702,18 +858,28 @@ class SearchContext:
 
         if n_sel == 0:
             return {}
-        if self.db_stream > 1:
-            # the packed rows per shard, concatenated in shard order; local
-            # subject-frame ids -> global
+        if parts is not None:
+            # the packed rows per shard (per cell, in cell order: the JAX
+            # mesh's (q, db, hit) order), concatenated; local subject-frame
+            # ids -> global, and under the mesh block-local query-frame ids
+            # -> batch rows
+            if self.mesh is None:
+                s_base, q_base = self.stream_base, np.zeros(len(parts),
+                                                             np.int64)
+            else:
+                Qm, Dm = self.mesh.shape
+                s_base = np.tile(self.shard_base, Qm)
+                q_base = np.repeat(np.arange(Qm) * (len(trans) // Qm), Dm)
             rows = []
             with stats.timed("time_locate"):
-                for i, r in enumerate(sd.stream_outs):
+                for i, r in enumerate(parts):
                     n_i = int(svs[i][4])
                     if n_i == 0:
                         continue
                     nb = min(extend._bucket(n_i), int(r["packed"].shape[0]))
                     p = r["packed"][:nb].cpu().numpy()[:n_i].astype(np.int64)
-                    p[:, 0] += int(self.stream_base[i])
+                    p[:, 0] += int(s_base[i])
+                    p[:, 3] += int(q_base[i]) << 8
                     rows.append(p)
             packed = np.concatenate(rows, axis=0)
         else:
@@ -740,14 +906,19 @@ class SearchContext:
             return {}
 
         # --- pass 1: score only (K1); under --db-stream the subject
-        # windows are gathered from the host concat and uploaded
+        # windows are gathered from the host concat and uploaded, under
+        # the mesh each cell gathers them from its local subject shard
         gf = self.align_fwd.dp_gap_first
         ge = self.align_fwd.dp_gap_extend
         with stats.timed("time_extend"):
-            scores = extend.sw_scores_device(
-                m, sd.d_trans_q, self.d_trans_sbj, self.d_sbj_offsets,
-                self.d_sbj_lens, self.e8_fwd, self.e8_rev, gf, ge,
-                self.bs_mode, stats=stats)
+            if self.mesh is not None:
+                scores = self._sharded_scores(m, sd.d_trans_q, gf, ge,
+                                              stats=stats)
+            else:
+                scores = extend.sw_scores_device(
+                    m, sd.d_trans_q, self.d_trans_sbj, self.d_sbj_offsets,
+                    self.d_sbj_lens, self.e8_fwd, self.e8_rev, gf, ge,
+                    self.bs_mode, stats=stats)
 
         # --- bit-score / e-value filters (search_algo.hpp:1252-1283)
         orig_qlens = np.array([len(s) for s in qry_seqs], dtype=np.int64)
@@ -845,7 +1016,41 @@ class SearchContext:
         return out
 
 
-def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
+# seconds a --distributed rendezvous may take (jax.distributed.initialize's
+# default initialization timeout)
+DIST_TIMEOUT_S = 300
+
+
+def run_search(opt: opt_mod.LambdaOptions, device="cuda",
+               devices=None) -> StatsHolder:
+    """The search of ``opt`` on ``device`` (``devices``: the mesh's cells,
+    see SearchContext).  ``opt.distributed`` = "ADDR,PID,N" first joins
+    this process to a torch.distributed group (gloo, rendezvous at
+    tcp://ADDR) as rank PID of N -- the counterpart of the JAX package's
+    jax.distributed.initialize; hosts share no runtime state, so the
+    search itself uses no collective (each host searches its
+    --shard-subset and tools/merge_m8.py merges the outputs).  A
+    rendezvous that does not complete within DIST_TIMEOUT_S raises
+    (RuntimeError).  The group is destroyed when the search ends."""
+    dist = getattr(opt, "distributed", "")
+    if not dist:
+        return _run_search(opt, device, devices)
+    import datetime
+
+    import torch.distributed as tdist
+
+    addr, pid, n = dist.rsplit(",", 2)
+    tdist.init_process_group(
+        "gloo", init_method=f"tcp://{addr}", rank=int(pid),
+        world_size=int(n),
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        return _run_search(opt, device, devices)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
     from .. import misc
 
     if not os.path.exists(opt.query_file):
@@ -859,7 +1064,7 @@ def run_search(opt: opt_mod.LambdaOptions, device="cuda") -> StatsHolder:
 
     misc.my_print(opt.verbosity, 1, "Loading Database Index... ", end="")
     t0 = time.time()
-    ctx = SearchContext(opt, device)
+    ctx = SearchContext(opt, device, devices)
     idx = ctx.idx
     misc.my_print(opt.verbosity, 1, "done.")
     misc.my_print(opt.verbosity, 2,

@@ -788,12 +788,16 @@ class Seeder:
         return curves.reshape(T, Q, V, E + 1).permute(1, 0, 2, 3)
 
     def curve_decide(self, curves, qlens, slot_frame, slot_begin, slot_rem,
-                     hits0):
+                     hits0, max_cursors: int = 0):
         """Stream decide (delta <= 1): the stage-1 walk (:func:`_slot_walk`)
         and abundance cutoff on the GLOBAL (shard-summed) curves, every
-        cursor with a nonzero global count walked.  Returns (seed_len,
-        keep) (Q, T, V): each cursor's decided length, and the global half
-        of stage 1's keep (pass B applies the local half)."""
+        cursor with a nonzero global count walked.  With ``max_cursors``
+        (the device mesh) only the first ``max_cursors`` of them per slot,
+        in (q, v) order, are walked, as the JAX mesh compacts its globally
+        live cursors before the walk; the others keep their initial count
+        (the resident stage 1's rule on global counts).  Returns
+        (seed_len, keep) (Q, T, V): each cursor's decided length, and the
+        global half of stage 1's keep (pass B applies the local half)."""
         cfg = self.cfg
         Q, T, V, E1 = curves.shape
         dev = curves.device
@@ -801,14 +805,21 @@ class Seeder:
         L = torch.zeros(T * Q * V, dtype=torch.int64, device=dev)
         gfin = c[:, 0].clone()
         if E1 > 1:
-            widx = torch.nonzero(gfin > 0).reshape(-1)
+            walk = gfin > 0
+            base = torch.zeros((T, Q), dtype=torch.int64, device=dev)
+            if max_cursors:
+                live = walk.reshape(T, Q * V)
+                rank = torch.cumsum(live.to(torch.int64), dim=1) - 1
+                walk = (live & (rank < min(max_cursors, Q * V))).reshape(-1)
+                fixed = ~walk & (gfin > 0) & (gfin <= cfg.occ_cap)
+                base = torch.where(fixed, gfin, 0).reshape(T, Q, V).sum(2)
+            widx = torch.nonzero(walk).reshape(-1)
             _, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
                                                 slot_rem)
             r_w = widx // V
             Lw = _slot_walk(cfg, c[widx], r_w // Q, r_w % Q, begin[r_w],
-                            qlens.to(torch.int64)[gs[r_w]], rem[r_w],
-                            torch.zeros((T, Q), dtype=torch.int64,
-                                        device=dev), hits0)
+                            qlens.to(torch.int64)[gs[r_w]], rem[r_w], base,
+                            hits0)
             L[widx] = Lw
             gfin[widx] = c[widx].gather(1, Lw[:, None])[:, 0]
 
@@ -919,7 +930,12 @@ def make_stream_seeder(cfg: SeedConfig) -> dict:
     Returns dict with keys pigeon (bool), pass_a, decide, pass_b, with
     the signatures of the JAX package's passes.  The pipeline runs them
     in SearchContext._stream_seed_call."""
-    s = Seeder(cfg)
+    return stream_passes(Seeder(cfg))
+
+
+def stream_passes(s: Seeder) -> dict:
+    """The pass A / decide / pass B methods of seeder ``s`` (see
+    :func:`make_stream_seeder`); the device mesh runs them per cell."""
     if s.pigeon:
         return dict(pigeon=True, pass_a=s.pigeon_count_pass,
                     decide=s.pigeon_decide, pass_b=s.pigeon_forced_pass)

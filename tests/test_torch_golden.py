@@ -79,13 +79,23 @@ def test_port_cli_device_trace_matches_blastp_golden(name, suffix,
 
 
 def test_port_cli_refuses_unported(tmp_path):
-    """A flag of the JAX package the port does not have yet (the device
-    mesh) exits 1 with "not yet ported"."""
+    """The port has every flag of the JAX package now; a device mesh larger
+    than the visible cards exits 1 with the JAX package's message and
+    falls back to nothing (no CPU cells for the default device 'cuda')."""
+    import re
+
+    import torch
+
     q = tmp_path / "q.fasta"
     q.write_text(">q\nMSDLAREITPVNIEEELKSSYLDYAMSVIVGRALPDVRDGL\n")
+    n = torch.cuda.device_count()
+    want = max(n + 1, 2)
     r = run_port_cli("searchp", "-q", str(q), "-i", str(tmp_path / "y.lit"),
-                     "--db-shards", "2", home=tmp_path)
-    assert r.returncode == 1 and "not yet ported" in r.stderr
+                     "--db-shards", str(want), home=tmp_path)
+    assert r.returncode == 1
+    assert re.search(rf"--q-shards 1 x --db-shards {want} needs {want} "
+                     rf"devices; only {n} available\.", r.stderr), r.stderr
+    assert "not yet ported" not in r.stderr
 
 
 def test_chip_smoke_golden_fixtures_are_the_tests_own(tmp_path):

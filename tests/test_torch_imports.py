@@ -153,11 +153,14 @@ def test_misc_gz_writer_matches_jax_package(tmp_path):
      ("launches", "launches_dirs", "launches_sub")),
     ("lambda_tpu_torch.ops.sw_rect", ("launches",)),
     ("lambda_tpu_torch.search.extend", ()),
+    ("lambda_tpu_torch.parallel.mesh", ()),
+    ("lambda_tpu_torch.search.pipeline", ()),
 ])
 def test_kernel_modules_import_alone_without_jax(module, counters):
-    """Each kernel module (K1-K4) and the extension module import on
-    their own with no JAX and nothing of lambda_tpu, and hold an integer
-    launch counter per kernel."""
+    """Each kernel module (K1-K4), the extension module, the device mesh
+    and the pipeline import on their own with no JAX and nothing of
+    lambda_tpu, and the kernel modules hold an integer launch counter per
+    kernel."""
     code = (
         "import importlib, sys\n"
         f"m = importlib.import_module({module!r})\n"

@@ -181,7 +181,7 @@ def test_stream_budget_retry_parity(db_and_query):
 
 def test_stream_mesh_conflict_refused_as_jax(db_and_query, capsys):
     """--db-stream with --db-shards: both CLIs exit 1 with the same
-    message (the port refuses the mesh itself too, as not yet ported)."""
+    message."""
     d, db, q, lit = db_and_query
     argv = ["searchp", "-q", str(q), "-i", str(lit), "-o",
             str(d / "refused.m8"), "-v", "0", "--db-stream", "2",
