@@ -1,0 +1,9 @@
+"""pass2_ms_per_kq: search.extend.trace_pass -> native:
+StatsHolder.time_extend_trace, in ms per 1,000 queries, over the
+untraced calls of a traced run (the program's host clocks)."""
+
+from benchmark.harness.cell import phase_ms_per_kq
+
+
+def read(run):
+    return phase_ms_per_kq(run, ("time_extend_trace",))
