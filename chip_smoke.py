@@ -2033,11 +2033,8 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     if walk_in:
         r["slot_walk"] = slot_walk_cost(seeding._slot_walk, walk_in[0])
     if ctx.db_stream > 1:
-        up = ctx.stream_upload_s
-        r["upload_s_per_pass"] = {k: [round(x, 4) for x in v]
-                                  for k, v in up.items()}
-        r["upload_s_mean"] = {k: round(float(np.mean(v)), 4) if v else None
-                              for k, v in up.items()}
+        # the shard uploads of every pass A and pass B, from the stats
+        r["upload_s"] = round(stats.time_stream_upload, 4)
         r["shard_host_bytes"] = sum(t.numel() * t.element_size()
                                     for t in ctx.stream_sh.values())
     if ctx.mesh is not None:

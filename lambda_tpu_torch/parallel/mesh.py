@@ -502,12 +502,13 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
 
     Returns ``step(keys, pos, frame, offsets, lengths, trans, red, red_q,
     qlens, slot_frame, slot_begin, slot_rem, hits0, trans_q, subst_fwd,
-    subst_rev, bucket)``: index and subject shards per cell from
+    subst_rev, bucket, stats=None)``: index and subject shards per cell from
     ``Mesh.put_db`` (keys int64, offsets and lengths int64; bucket may be
     None), query inputs from ``Mesh.put_q``, matrices from
     ``Mesh.put_all``.  It returns each cell's pass-B result (the fused
     seeder's dict: hit arrays, ``packed``, ``stats_vec``), a list in cell
-    order.
+    order.  ``stats``, a StatsHolder, records the passes' walk span and
+    host syncs (see search/seeding.py).
 
     Id conventions (as the JAX package's): slot_frame holds BATCH-GLOBAL
     query-frame ids and is rebased to the cell's q block here, so emitted
@@ -520,7 +521,7 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
 
     def step(keys, pos, frame, offsets, lengths, trans, red, red_q, qlens,
              slot_frame, slot_begin, slot_rem, hits0, trans_q, subst_fwd,
-             subst_rev, bucket):
+             subst_rev, bucket, stats=None):
         outs = []
         for i in range(mesh.shape[0]):
             cells = mesh.row(i)
@@ -537,21 +538,23 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
                 bkt[c] = bucket[c] if bucket is not None else None
             if pigeon:
                 parts = [passes["pass_a"](keys[c], *slots[c], hits0[c],
-                                          *index[c], bkt[c]) for c in cells]
-            else:
-                parts = [passes["pass_a"](keys[c], *slots[c], bkt[c])
+                                          *index[c], bkt[c], stats=stats)
                          for c in cells]
+            else:
+                parts = [passes["pass_a"](keys[c], *slots[c], bkt[c],
+                                          stats=stats) for c in cells]
             acc = mesh.reduce_db(parts)
             del parts
             c0 = cells[0]
             ext_over = None
             if pigeon:
                 L_d, keep_d = passes["decide"](acc, *slots[c0][1:],
-                                               hits0[c0])
+                                               hits0[c0], stats=stats)
                 forced = (keep_d, L_d)
             else:
                 forced = passes["decide"](acc, *slots[c0][1:], hits0[c0],
-                                          max_cursors=cfg.max_cursors)
+                                          max_cursors=cfg.max_cursors,
+                                          stats=stats)
                 if seeder.E > 0:
                     ext_over = _ext_overflow(acc, cfg.max_cursors)
             del acc
@@ -559,7 +562,7 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
                 dev = keys[c].device
                 res = passes["pass_b"](keys[c], *slots[c], hits0[c],
                                        *index[c], *(f.to(dev) for f in forced),
-                                       bkt[c])
+                                       bkt[c], stats=stats)
                 if ext_over is not None:
                     eo = ext_over.to(dev)
                     res["stats"]["cursors_overflow"] = torch.maximum(

@@ -40,6 +40,7 @@ run whose hosts each search a ``--shard-subset``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 
@@ -54,7 +55,7 @@ from ..index import artifact
 from ..io import fasta
 from ..ops import searchsorted as ss, sw_band
 from ..output import blast_report, blast_tab, sam_bam
-from ..stats import StatsHolder
+from ..stats import StatsHolder, span
 from . import extend, records, seeding
 
 
@@ -116,6 +117,9 @@ class _SeedDispatch:
     stream_decided: tuple | None = None  # db-stream global decisions
     stream_outs: list | None = None      # db-stream per-shard pass-B outputs
     mesh_outs: list | None = None        # device mesh per-cell outputs
+    # CUDA events around each seeder call not yet read (collect_batch
+    # reads them after its stats pull, which has waited for them)
+    events: list = dataclasses.field(default_factory=list)
 
 
 class SearchContext:
@@ -400,9 +404,6 @@ class SearchContext:
         self.d_sbj_lens = torch.from_numpy(
             idx.trans_lengths.astype(np.int64))
         self._stream_seeders: dict = {}
-        # seconds of the shard uploads of each pass A and pass B (with
-        # LAMBDA_STREAM_SYNC on, the default: the copies alone)
-        self.stream_upload_s = {"pass_a": [], "pass_b": []}
 
     def _mesh_setup(self):
         """--db-shards/--q-shards: the index split into db_shards
@@ -617,6 +618,14 @@ class SearchContext:
         run the fused seeding WITHOUT pulling its results (CUDA launches
         are asynchronous; collect_batch pulls).  Returns the handle
         collect_batch takes."""
+        with stats.timed("time_seed_prep"):
+            sd = self._prepare_seeding(qry_seqs, so, stats)
+        self._seed_device_call(sd, stats)
+        return sd
+
+    def _prepare_seeding(self, qry_seqs, so, stats):
+        """The host half of :meth:`dispatch_seeding`: frames, seed
+        schedule, padding and the int8 uploads."""
         idx, opt = self.idx, self.opt
         cfg = self.seeder_for(so).cfg
 
@@ -665,7 +674,6 @@ class SearchContext:
             d_qlens=torch.as_tensor(qlens, device=dev),
             scale=self._budget_scale.get(
                 (so.seed_length, so.seed_offset, so.max_seed_dist), 1))
-        self._seed_device_call(sd, stats)
         return sd
 
     def _next_scale(self, st2: dict, scale: int) -> int:
@@ -687,11 +695,26 @@ class SearchContext:
         return min(p, 8)
 
     def _seed_device_call(self, sd: _SeedDispatch, stats: StatsHolder):
-        """Run the fused seeding for ``sd`` at its current budget scale."""
+        """Run the fused seeding for ``sd`` at its current budget scale; on
+        the card between two timing events on the current stream (of the
+        mesh's first cell), which collect_batch reads."""
+        events = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            events[0].record(stream)
         if self.db_stream > 1:
-            return self._stream_seed_call(sd, stats)
-        if self.mesh is not None:
-            return self._mesh_seed_call(sd, stats)
+            self._stream_seed_call(sd, stats)
+        elif self.mesh is not None:
+            self._mesh_seed_call(sd, stats)
+        else:
+            self._resident_seed_call(sd, stats)
+        if events is not None:
+            events[1].record(stream)
+            sd.events.append(events)
+
+    def _resident_seed_call(self, sd: _SeedDispatch, stats: StatsHolder):
+        """The fused seeder on the resident index."""
         seeder = self.seeder_for(sd.so, sd.scale)
         dev = self.device
         with stats.timed("time_seed"):
@@ -704,7 +727,8 @@ class SearchContext:
                 self.d_pos, self.d_frame, self.d_sbj_offsets,
                 self.d_sbj_lens, self.d_trans_sbj, sd.d_trans_q,
                 self.d_sub_fwd, self.d_sub_rev, self.d_bucket,
-                red_sbj=self.d_red_sbj if seeder.pigeon else None)
+                red_sbj=self.d_red_sbj if seeder.pigeon else None,
+                stats=stats)
 
     def _mesh_seed_call(self, sd: _SeedDispatch, stats: StatsHolder):
         """The seeding of one batch over the (q, db) grid
@@ -723,27 +747,26 @@ class SearchContext:
                 m.put_q(sd.slot_frame), m.put_q(sd.slot_begin),
                 m.put_q(sd.slot_rem), m.put_q(np.zeros(sd.Q, np.int64)),
                 m.put_q(sd.d_trans_q), m.put_all(self.d_sub_fwd),
-                m.put_all(self.d_sub_rev), self.d_sh["bucket"])
+                m.put_all(self.d_sub_rev), self.d_sh["bucket"], stats=stats)
             sd.mesh_outs = [{k: r[k] for k in ("packed", "stats_vec")}
                             for r in outs]
 
-    def _shard_tensors(self, i: int, sync: bool):
+    def _shard_tensors(self, i: int, sync: bool, stats: StatsHolder):
         """Shard ``i`` on the device: (keys, pos, frame, offsets, lengths,
         trans, red, bucket); keys arrive as the int32 bit pattern and are
-        widened there to the int64 uint32 values.  Returns (tensors,
-        upload seconds)."""
+        widened there to the int64 uint32 values.  The upload is the span
+        ``time_stream_upload`` (with ``sync``: the copies alone, else the
+        host's enqueue time)."""
         dev = self.device
-        t0 = time.perf_counter()
-        up = {n: x[i].to(dev, non_blocking=True)
-              for n, x in self.stream_sh.items()}
-        if sync:
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
+        with stats.timed("time_stream_upload"):
+            up = {n: x[i].to(dev, non_blocking=True)
+                  for n, x in self.stream_sh.items()}
+            if sync:
+                torch.cuda.synchronize(dev)
         keys = up["keys"].to(torch.int64) & 0xFFFFFFFF
         bkt = up["bucket"].to(torch.int64) if "bucket" in up else None
         return (keys, up["pos"], up["frame"], up["offsets"].to(torch.int64),
-                up["lengths"].to(torch.int64), up["trans"], up["red"],
-                bkt), dt
+                up["lengths"].to(torch.int64), up["trans"], up["red"], bkt)
 
     def _stream_seed_call(self, sd: _SeedDispatch, stats: StatsHolder):
         """Database-streaming seeding of one batch: pass A per shard
@@ -754,8 +777,7 @@ class SearchContext:
         tensors, never the whole index.
 
         LAMBDA_STREAM_SYNC=0 skips the per-shard synchronisation that
-        bounds how many shard uploads can be in flight (and then the
-        recorded upload seconds are the host's enqueue time)."""
+        bounds how many shard uploads can be in flight."""
         so = sd.so
         strm = self.stream_seeder_for(so, sd.scale)
         D = self.stream_sh["keys"].shape[0]
@@ -769,52 +791,49 @@ class SearchContext:
 
         with stats.timed("time_seed"):
             if sd.stream_decided is None:
-                acc, up_s = None, 0.0
+                acc = None
                 for i in range(D):
-                    (keys, pos, frame, offs, lens, trans, red, bkt), dt = \
-                        self._shard_tensors(i, sync)
-                    up_s += dt
+                    keys, pos, frame, offs, lens, trans, red, bkt = \
+                        self._shard_tensors(i, sync, stats)
                     if strm["pigeon"]:
                         c = strm["pass_a"](
                             keys, *slot_args, h0, pos, frame, offs, lens,
                             trans, sd.d_trans_q, red, self.d_sub_fwd,
-                            self.d_sub_rev, bkt)
+                            self.d_sub_rev, bkt, stats=stats)
                     else:
-                        c = strm["pass_a"](keys, *slot_args, bkt)
+                        c = strm["pass_a"](keys, *slot_args, bkt,
+                                           stats=stats)
                     acc = c if acc is None else acc + c
                     del keys, pos, frame, offs, lens, trans, red, bkt, c
                     if sync:
                         torch.cuda.synchronize(dev)
-                self.stream_upload_s["pass_a"].append(up_s)
                 sd.stream_decided = strm["decide"](acc, sd.d_qlens, *slots,
-                                                   h0)
+                                                   h0, stats=stats)
                 del acc
             if strm["pigeon"]:
                 L_d, keep_d = sd.stream_decided
                 forced = (keep_d, L_d)
             else:
                 forced = sd.stream_decided
-            outs, up_s = [], 0.0
+            outs = []
             for i in range(D):
-                (keys, pos, frame, offs, lens, trans, red, bkt), dt = \
-                    self._shard_tensors(i, sync)
-                up_s += dt
+                keys, pos, frame, offs, lens, trans, red, bkt = \
+                    self._shard_tensors(i, sync, stats)
                 res = strm["pass_b"](
                     keys, *slot_args, h0, pos, frame, offs, lens, trans,
                     sd.d_trans_q, red, self.d_sub_fwd, self.d_sub_rev,
-                    *forced, bkt)
+                    *forced, bkt, stats=stats)
                 outs.append({k: res[k] for k in ("packed", "stats_vec")})
                 del keys, pos, frame, offs, lens, trans, red, bkt, res
                 if sync:
                     torch.cuda.synchronize(dev)
-            self.stream_upload_s["pass_b"].append(up_s)
             sd.stream_outs = outs
 
     def collect_batch(self, sd: _SeedDispatch, stats: StatsHolder):
         """Phase B of process_batch: pull the seeding results (retrying
         with doubled budgets on overflow), then extension + the host
         tail.  Returns dict: local query idx -> [BlastMatch]."""
-        idx, opt = self.idx, self.opt
+        opt = self.opt
         F = self.qry_num_frames
         so = sd.so
         qry_seqs, trans, qlens = sd.qry_seqs, sd.trans, sd.qlens
@@ -833,6 +852,12 @@ class SearchContext:
             else:
                 with stats.timed("time_locate"):
                     sv = sd.res2["stats_vec"].cpu().numpy()
+            stats.seed_syncs += len(parts) if parts is not None else 1
+            # the pull waited for the stream, so the seeder calls' events
+            # are complete: reading them adds no synchronisation
+            for start, end in sd.events:
+                stats.dev_seed_s += start.elapsed_time(end) / 1e3
+            sd.events.clear()
             st2 = dict(hits_located=int(sv[0]), hits_overflow=int(sv[1]),
                        failed_prescore=int(sv[2]),
                        cursors_overflow=int(sv[3]))
@@ -878,6 +903,7 @@ class SearchContext:
                         continue
                     nb = min(extend._bucket(n_i), int(r["packed"].shape[0]))
                     p = r["packed"][:nb].cpu().numpy()[:n_i].astype(np.int64)
+                    stats.seed_syncs += 1
                     p[:, 0] += int(s_base[i])
                     p[:, 3] += int(q_base[i]) << 8
                     rows.append(p)
@@ -887,6 +913,7 @@ class SearchContext:
             with stats.timed("time_locate"):
                 packed = sd.res2["packed"][:nb].cpu().numpy()[:n_sel] \
                     .astype(np.int64)
+            stats.seed_syncs += 1
         seed_len = packed[:, 3] & 0xFF
         stats.add_seed_lens(seed_len)
         m = extend.MatchBatch(
@@ -921,22 +948,24 @@ class SearchContext:
                     self.bs_mode, stats=stats)
 
         # --- bit-score / e-value filters (search_algo.hpp:1252-1283)
-        orig_qlens = np.array([len(s) for s in qry_seqs], dtype=np.int64)
-        match_qlens = orig_qlens[m.qry_id // F]
-        keep = np.ones(len(m), dtype=bool)
-        if opt.min_bit_score >= 0:
-            fail_bit = self.evaluer.bit_score_v(scores) < opt.min_bit_score
-            stats.hits_failed_bit_score += int(fail_bit.sum())
-            keep &= ~fail_bit
-        if opt.max_e_value >= 0:
-            e_values = self.evaluer.e_value_v(scores, match_qlens)
-            fail_e = keep & (e_values > opt.max_e_value)
-            stats.hits_failed_e_value += int(fail_e.sum())
-            keep &= ~fail_e
-        idxs = np.nonzero(keep)[0]
-        if len(idxs) == 0:
-            return {}
-        m2 = m.take(idxs)
+        with stats.timed("time_records"):
+            orig_qlens = np.array([len(s) for s in qry_seqs], dtype=np.int64)
+            match_qlens = orig_qlens[m.qry_id // F]
+            keep = np.ones(len(m), dtype=bool)
+            if opt.min_bit_score >= 0:
+                fail_bit = self.evaluer.bit_score_v(scores) \
+                    < opt.min_bit_score
+                stats.hits_failed_bit_score += int(fail_bit.sum())
+                keep &= ~fail_bit
+            if opt.max_e_value >= 0:
+                e_values = self.evaluer.e_value_v(scores, match_qlens)
+                fail_e = keep & (e_values > opt.max_e_value)
+                stats.hits_failed_e_value += int(fail_e.sum())
+                keep &= ~fail_e
+            idxs = np.nonzero(keep)[0]
+            if len(idxs) == 0:
+                return {}
+            m2 = m.take(idxs)
 
         # --- pass 2: traceback + inline alignment stats (host C++), or
         # K2 + a host walk under LAMBDA_SW_TRACE=device (astats None; its
@@ -948,6 +977,22 @@ class SearchContext:
                 self.bs_mode, resident=(sd.d_trans_q, self.d_trans_sbj,
                                         self.d_sbj_offsets, self.d_sbj_lens))
 
+        trace_s = stats.time_extend_trace
+        with stats.timed("time_records"):
+            out = self._records(m2, traces, scores2b, astats, trans,
+                                orig_qlens, stats)
+        # the per-match stats of the device traceback are pass 2's
+        # (time_extend_trace): the top-level buckets do not overlap
+        stats.time_records -= stats.time_extend_trace - trace_s
+        return out
+
+    def _records(self, m2, traces, scores2b, astats, trans, orig_qlens,
+                 stats: StatsHolder) -> dict:
+        """The records of pass 2's alignments (alignment stats computed
+        here where ``astats`` is None) that pass the %-identity filter:
+        local query idx -> [BlastMatch]."""
+        idx, opt = self.idx, self.opt
+        F = self.qry_num_frames
         out: dict[int, list[records.BlastMatch]] = {}
         for i in range(len(m2)):
             if traces[i] is None:
@@ -1016,6 +1061,10 @@ class SearchContext:
         return out
 
 
+# --trace-dir's per-process call number: a resident process's calls
+# write traces of their own
+_TRACE_CALLS = itertools.count()
+
 # seconds a --distributed rendezvous may take (jax.distributed.initialize's
 # default initialization timeout)
 DIST_TIMEOUT_S = 300
@@ -1062,9 +1111,11 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
     misc.check_ram(opt.index_file, opt.query_file, opt.lazy_qry_file,
                    opt.verbosity)
 
+    stats = StatsHolder()
     misc.my_print(opt.verbosity, 1, "Loading Database Index... ", end="")
     t0 = time.time()
-    ctx = SearchContext(opt, device, devices)
+    with stats.timed("time_load"):
+        ctx = SearchContext(opt, device, devices)
     idx = ctx.idx
     misc.my_print(opt.verbosity, 1, "done.")
     misc.my_print(opt.verbosity, 2,
@@ -1079,19 +1130,19 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
     # search_algo.hpp:332-361); lazy streams and only counts first
     if opt.lazy_qry_file:
         misc.my_print(opt.verbosity, 1, "Counting Query Sequences... ", end="")
-        query_total = fasta.count_seqs(opt.query_file)
+        with stats.timed("time_read"):
+            query_total = fasta.count_seqs(opt.query_file)
         from ..io.async_buffer import async_input_buffer
         query_stream = async_input_buffer(
             fasta.iter_seqs(opt.query_file),
             capacity=opt.query_batch_size * 4)
     else:
         misc.my_print(opt.verbosity, 1, "Loading Query Sequences... ", end="")
-        _all_queries = fasta.read_fasta(opt.query_file)
+        with stats.timed("time_read"):
+            _all_queries = fasta.read_fasta(opt.query_file)
         query_total = len(_all_queries)
         query_stream = iter(_all_queries)
     misc.my_print(opt.verbosity, 1, "done.")
-
-    stats = StatsHolder()
 
     if opt.has_s_tax_ids and not idx.has_s_tax_ids:
         raise RuntimeError(
@@ -1191,15 +1242,16 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
     done = 0
 
     def batches():
-        ids: list[str] = []
-        seqs: list[np.ndarray] = []
-        for rec in query_stream:
-            ids.append(rec.id)
-            seqs.append(ab.encode(rec.seq, ctx.qry_orig_alph))
-            if len(seqs) >= opt.query_batch_size:
-                yield ids, seqs
-                ids, seqs = [], []
-        if seqs:
+        # the read and encode of a batch is the span time_read; it is
+        # closed before the yield, which hands the batch to the search
+        size = max(opt.query_batch_size, 1)
+        while True:
+            with stats.timed("time_read"):
+                recs = list(itertools.islice(query_stream, size))
+                ids = [rec.id for rec in recs]
+                seqs = [ab.encode(rec.seq, ctx.qry_orig_alph) for rec in recs]
+            if not recs:
+                return
             yield ids, seqs
 
     # the first-pass options (phase 1 cheap seeds if iterative)
@@ -1215,8 +1267,10 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
             remaining = [q for q in range(len(batch_seqs))
                          if q not in successful]
             if remaining:
-                res2 = ctx.process_batch([batch_seqs[q] for q in remaining],
-                                         opt.search_opts, stats)
+                with stats.timed("time_phase2"):
+                    res2 = ctx.process_batch(
+                        [batch_seqs[q] for q in remaining], opt.search_opts,
+                        stats)
                 for qi, ms in res2.items():
                     res1[remaining[qi]] = ms
         for q, ms in sorted(res1.items()):
@@ -1228,16 +1282,20 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
     # one-deep seeding prefetch: batch k+1's (phase-1) seeding is launched
     # BEFORE batch k's hits are pulled, so the device seeds k+1 while the
     # host runs k's tail.  Each batch's computation is unchanged and
-    # outputs are written in order, so the bytes are the same.
+    # outputs are written in order, so the bytes are the same.  Under a
+    # profiler, a batch's dispatch and its finish are spans "batch <k>".
     pending = None
     try:
-        for batch_ids, batch_seqs in batches():
-            sd = ctx.dispatch_seeding(batch_seqs, so_first, stats)
+        for k, (batch_ids, batch_seqs) in enumerate(batches()):
+            with span(f"batch {k}"):
+                sd = ctx.dispatch_seeding(batch_seqs, so_first, stats)
             if pending is not None:
-                finish_batch(*pending)
+                with span(f"batch {k - 1}"):
+                    finish_batch(*pending)
             pending = (batch_ids, batch_seqs, sd)
         if pending is not None:
-            finish_batch(*pending)
+            with span(f"batch {k}"):
+                finish_batch(*pending)
     finally:
         # the trace is written even when a batch raises (the profile
         # would otherwise be lost); the footer only on success -- a
@@ -1246,7 +1304,8 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
             profiler.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             profiler.export_chrome_trace(os.path.join(
-                profile_dir, f"lambda_search.{os.getpid()}.pt.trace.json"))
+                profile_dir, f"lambda_search.{os.getpid()}."
+                f"{next(_TRACE_CALLS)}.pt.trace.json"))
     progress.finish()
     writer.write_footer()
     return stats

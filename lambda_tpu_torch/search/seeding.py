@@ -38,10 +38,16 @@ resident seeder, the stream decide and pigeonhole's walk on verified
 counts).  Bisection depths are bounded from the index (largest prefix
 bucket, largest live range) instead of the JAX while-loop's convergence
 test; both give the exact ranges.
+
+Every entry point takes an optional ``stats`` (a StatsHolder): the count
+curves and the slot walk are then its span ``time_seed_walk``, and each
+device-to-host read (a ``.tolist()``, ``nonzero`` or ``int`` of a
+tensor) counts in ``seed_syncs``.  Without it nothing is recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -51,6 +57,18 @@ from ..ops import kmer, searchsorted as ss
 
 # rows of (slot, query, variant) searched per batched initial search
 _SEARCH_ROWS = 1 << 21
+
+
+def _walk_span(stats):
+    """The span ``time_seed_walk`` of ``stats``, or nothing without it."""
+    return contextlib.nullcontext() if stats is None \
+        else stats.timed("time_seed_walk")
+
+
+def _synced(stats) -> None:
+    """Count one device-to-host read of the seeding in ``stats``."""
+    if stats is not None:
+        stats.seed_syncs += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +202,7 @@ def _seed_mode(cfg: SeedConfig):
 
 
 def _slot_walk(cfg: SeedConfig, curve, t_w, q_w, beg_w, flen_w, rem_w,
-               base, hits0):
+               base, hits0, stats=None):
     """The adaptive elongation walk (search_algo.hpp:679-726) of rows
     sorted by seed slot: the resident seeder's walked cursors, the stream
     decide's cursors with a nonzero global count, or pigeonhole's seed
@@ -216,6 +234,7 @@ def _slot_walk(cfg: SeedConfig, curve, t_w, q_w, beg_w, flen_w, rem_w,
         - base
     walked_acc = torch.zeros(Q, dtype=torch.int64, device=dev)
     bounds = torch.searchsorted(t_w, torch.arange(T + 1, device=dev)).tolist()
+    _synced(stats)
     for t in range(T):
         a, b = bounds[t], bounds[t + 1]
         if a == b:
@@ -286,7 +305,8 @@ class Seeder:
         return (kmer.pack_prefix(chars, lens, cfg.bits, cfg.cpw, cfg.words),
                 ss.length_masks(lens, cfg.bits, cfg.cpw, cfg.words))
 
-    def _batched_search(self, keys, n_rows, make, bucket, min_len):
+    def _batched_search(self, keys, n_rows, make, bucket, min_len,
+                        stats=None):
         """(lo, count) (n_rows * V,) of every row's V strings, searched
         over the whole index in batches of rows; ``make(a, b)`` gives rows
         a..b's packed targets, masks (R, V, words) and validity (R, V)
@@ -301,6 +321,7 @@ class Seeder:
         bkt = bucket.to(torch.int64) if bsh is not None else None
         if bkt is not None and min_len >= cfg.bucket_m:
             n0 = ss.steps_for(int((bkt[1:] - bkt[:-1]).max()))
+            _synced(stats)
         else:
             n0 = ss.steps_for(P)
         lo = torch.empty(n_rows * V, dtype=torch.int64, device=dev)
@@ -328,7 +349,8 @@ class Seeder:
                 slot_begin.t().reshape(-1).to(torch.int64),
                 slot_rem.t().reshape(-1).to(torch.int64))
 
-    def _initial_search(self, keys, red_q, g, gs, begin, bucket):
+    def _initial_search(self, keys, red_q, g, gs, begin, bucket,
+                        stats=None):
         """(lo, count) (T * Q * V,) of every slot row's variants."""
         def make(a, b):
             chars, lens, valid = self._variant_chars(red_q, gs[a:b],
@@ -337,7 +359,8 @@ class Seeder:
 
         min_len = int(self.chunk_len.min()) if self.pigeon \
             else self.cfg.seed_length
-        return self._batched_search(keys, g.shape[0], make, bucket, min_len)
+        return self._batched_search(keys, g.shape[0], make, bucket, min_len,
+                                    stats)
 
     def _cursor_dict(self, lo, count, seed_len, shift, gs, begin, Q, T):
         """(T, Q*V) cursor arrays -> the (Q, T*V) cursor lists, in the JAX
@@ -360,7 +383,7 @@ class Seeder:
                     shift=qtv(shift), slot=qtv(per_row(slot)))
 
     def stage1(self, keys, red_q, qlens, slot_frame, slot_begin, slot_rem,
-               hits_this_seq0, bucket=None):
+               hits_this_seq0, bucket=None, stats=None):
         """Seed search + adaptive elongation + abundance cutoff over all
         slots (pigeonhole: the chunk anchors' exact counts, no decision).
         Returns dict of (Q, T*V) cursor arrays (lo, count, seed_len,
@@ -373,7 +396,8 @@ class Seeder:
         QV = Q * V
         red_q = red_q.to(torch.int64)
         g, gs, begin, rem = self._slot_rows(slot_frame, slot_begin, slot_rem)
-        lo, count = self._initial_search(keys, red_q, g, gs, begin, bucket)
+        lo, count = self._initial_search(keys, red_q, g, gs, begin, bucket,
+                                         stats)
         lo = lo.reshape(T, QV)
         count = count.reshape(T, QV)
         seed_len = torch.full((T, QV), k, dtype=torch.int64, device=dev)
@@ -389,7 +413,7 @@ class Seeder:
             ext_over = (live.sum(dim=1) - CE).clamp(min=0).max()
             walk = live & (rank < CE)
             self._walk(keys, red_q, qlens.to(torch.int64), walk, lo, count,
-                       seed_len, gs, begin, rem, hits_this_seq0, Q, T)
+                       seed_len, gs, begin, rem, hits_this_seq0, Q, T, stats)
         if self.pigeon:
             # chunk-anchor counts are counts of a much shorter string: the
             # abundance cutoff waits for stage 2's verified counts
@@ -405,7 +429,8 @@ class Seeder:
         cur["ext_over"] = ext_over
         return cur
 
-    def _count_curves(self, keys, red_q, widx, lo, count, gs, begin, Q):
+    def _count_curves(self, keys, red_q, widx, lo, count, gs, begin, Q,
+                      stats=None):
         """Occurrence-count curves of the cursors ``widx`` (flat (t, q, v)
         indices into the (T, Q*V) arrays): step e re-searches the variant
         extended by e+1 query characters inside the step-e range.
@@ -438,7 +463,10 @@ class Seeder:
         lo_c = lo.reshape(-1)[widx]
         cnt0 = count.reshape(-1)[widx]
         hi_c = lo_c + cnt0
-        n_ext = ss.steps_for(int(cnt0.max())) if nW else 1
+        n_ext = 1
+        if nW:
+            n_ext = ss.steps_for(int(cnt0.max()))
+            _synced(stats)
         lo_curve = [lo_c]
         cnt_curve = [cnt0]
         for e in range(E):
@@ -456,26 +484,28 @@ class Seeder:
                 torch.stack(cnt_curve, dim=1))
 
     def _walk(self, keys, red_q, qlens, walk, lo, count, seed_len, gs, begin,
-              rem, hits0, Q, T):
+              rem, hits0, Q, T, stats=None):
         """Adaptive elongation of the walked cursors, in place on the
         (T, Q*V) lo/count/seed_len arrays: their count curves, then
         :func:`_slot_walk` with the kept counts of the cursors that are not
         walked (fixed at their initial count) as each slot's base."""
         cfg = self.cfg
-        widx = torch.nonzero(walk.reshape(-1)).reshape(-1)
-        if widx.numel() == 0:
-            return
-        t_w, q_w, r_w, lo_curve, cnt_curve = self._count_curves(
-            keys, red_q, widx, lo, count, gs, begin, Q)
-        cnt_t = count.reshape(T, Q, self.V)
-        fixed = (cnt_t > 0) & (cnt_t <= cfg.occ_cap) \
-            & ~walk.reshape(T, Q, self.V)
-        base = torch.where(fixed, cnt_t, 0).sum(dim=2)          # (T, Q)
-        L = _slot_walk(cfg, cnt_curve, t_w, q_w, begin[r_w],
-                       qlens[gs[r_w]], rem[r_w], base, hits0)
-        lo.view(-1)[widx] = lo_curve.gather(1, L[:, None])[:, 0]
-        count.view(-1)[widx] = cnt_curve.gather(1, L[:, None])[:, 0]
-        seed_len.view(-1)[widx] = cfg.seed_length + L
+        with _walk_span(stats):
+            widx = torch.nonzero(walk.reshape(-1)).reshape(-1)
+            _synced(stats)
+            if widx.numel() == 0:
+                return
+            t_w, q_w, r_w, lo_curve, cnt_curve = self._count_curves(
+                keys, red_q, widx, lo, count, gs, begin, Q, stats)
+            cnt_t = count.reshape(T, Q, self.V)
+            fixed = (cnt_t > 0) & (cnt_t <= cfg.occ_cap) \
+                & ~walk.reshape(T, Q, self.V)
+            base = torch.where(fixed, cnt_t, 0).sum(dim=2)      # (T, Q)
+            L = _slot_walk(cfg, cnt_curve, t_w, q_w, begin[r_w],
+                           qlens[gs[r_w]], rem[r_w], base, hits0, stats)
+            lo.view(-1)[widx] = lo_curve.gather(1, L[:, None])[:, 0]
+            count.view(-1)[widx] = cnt_curve.gather(1, L[:, None])[:, 0]
+            seed_len.view(-1)[widx] = cfg.seed_length + L
 
     # -- compaction, stage 2, packing -----------------------------------
 
@@ -502,7 +532,7 @@ class Seeder:
     def stage2(self, kmer_pos, kmer_frame, sbj_offsets, sbj_lens, trans_sbj,
                trans_q, tq_lens, cur, subst_fwd, subst_rev, red_q=None,
                red_sbj=None, slots=None, hits0=None, emit_cnt=False,
-               forced=None):
+               forced=None, stats=None):
         """Flat locate (+ pigeonhole verification) + prescore over the
         compacted (C,) cursor arrays ``cur``.  Returns per-hit arrays of
         length cfg.max_hits + stats.
@@ -601,7 +631,7 @@ class Seeder:
                     keep_dense, L_dense = forced
                 else:
                     L_dense, keep_dense = self.pigeon_decide(
-                        cnt, tq_lens, *slots, hits0)
+                        cnt, tq_lens, *slots, hits0, stats=stats)
                 L_h = L_dense[slot]
                 hit_valid = hit_valid & keep_dense[slot] & (ext_len >= L_h)
                 slen_seed = torch.where(hit_valid, k + L_h, slen_seed)
@@ -669,7 +699,7 @@ class Seeder:
                     valid=hit_valid, passed=passed, stats=stats)
 
     def pigeon_decide(self, cnt, qlens, slot_frame, slot_begin, slot_rem,
-                      hits0):
+                      hits0, stats=None):
         """(L_dense, keep_dense) (Q*T,) from the GLOBAL per-slot verified
         counts ``cnt`` (Q*T, E+1): the whole-seed abundance cutoff, and
         with adaptive seeding the elongation by verification, walked over
@@ -684,12 +714,15 @@ class Seeder:
             return (torch.zeros(Q * T, dtype=torch.int64, device=dev),
                     cnt[:, 0] <= cfg.occ_cap)
         curve = cnt.reshape(Q, T, E + 1).transpose(0, 1).reshape(Q * T, E + 1)
-        rows = torch.nonzero(curve[:, 0] > 0).reshape(-1)      # r = t*Q + q
-        g, gs, begin, rem = self._slot_rows(slot_frame, slot_begin, slot_rem)
-        L = _slot_walk(cfg, curve[rows], rows // Q, rows % Q, begin[rows],
-                       qlens.to(torch.int64)[gs[rows]], rem[rows],
-                       torch.zeros((T, Q), dtype=torch.int64, device=dev),
-                       hits0)
+        with _walk_span(stats):
+            rows = torch.nonzero(curve[:, 0] > 0).reshape(-1)  # r = t*Q + q
+            _synced(stats)
+            g, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
+                                                slot_rem)
+            L = _slot_walk(cfg, curve[rows], rows // Q, rows % Q,
+                           begin[rows], qlens.to(torch.int64)[gs[rows]],
+                           rem[rows], torch.zeros((T, Q), dtype=torch.int64,
+                                                  device=dev), hits0, stats)
         gfin = curve[rows].gather(1, L[:, None])[:, 0]
         keep = torch.zeros(Q * T, dtype=torch.bool, device=dev)
         L_all = torch.zeros(Q * T, dtype=torch.int64, device=dev)
@@ -719,7 +752,8 @@ class Seeder:
 
     def _finish(self, cur, kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
                 trans_sbj, trans_q, qlens, red_q, red_sbj, subst_fwd,
-                subst_rev, slots, hits0, emit_cnt=False, forced=None):
+                subst_rev, slots, hits0, emit_cnt=False, forced=None,
+                stats=None):
         """Compaction -> stage 2 -> packing of a stage-1 cursor dict; the
         elongation budget shares base (max_cursors) and retry semantics
         with the stage-2 cursor budget, so its overflow folds into the
@@ -728,7 +762,7 @@ class Seeder:
         res = self.stage2(kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
                           trans_sbj, trans_q, qlens, cc, subst_fwd,
                           subst_rev, red_q, red_sbj, slots, hits0,
-                          emit_cnt=emit_cnt, forced=forced)
+                          emit_cnt=emit_cnt, forced=forced, stats=stats)
         if emit_cnt:
             return res
         res["stats"]["cursors_overflow"] = torch.maximum(
@@ -739,7 +773,7 @@ class Seeder:
     def __call__(self, keys, red_q, qlens, slot_frame, slot_begin, slot_rem,
                  hits_this_seq0, kmer_pos, kmer_frame, sbj_offsets, sbj_lens,
                  trans_sbj, trans_q, subst_fwd, subst_rev, bucket=None,
-                 red_sbj=None):
+                 red_sbj=None, stats=None):
         """stage 1 -> device cursor compaction -> stage 2 -> packing.
 
         ``red_sbj``, the reduced subject concat, is needed by pigeonhole
@@ -749,12 +783,12 @@ class Seeder:
         int32 rows [s_frame, s_off, q_begin, q_frame << 8 | seed_len] hold
         the selected hits first."""
         cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
-                          slot_rem, hits_this_seq0, bucket)
+                          slot_rem, hits_this_seq0, bucket, stats)
         return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
                             sbj_lens, trans_sbj, trans_q, qlens, red_q,
                             red_sbj, subst_fwd, subst_rev,
                             (slot_frame, slot_begin, slot_rem),
-                            hits_this_seq0)
+                            hits_this_seq0, stats=stats)
 
     # -- database streaming (make_stream_seeder) ------------------------
     # The decisions a single index takes on its counts become one decide
@@ -762,7 +796,7 @@ class Seeder:
     # integers, so the same output bytes.
 
     def curve_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
-                   slot_rem, bucket=None):
+                   slot_rem, bucket=None, stats=None):
         """Stream pass A (delta <= 1): per-cursor occurrence-count CURVES
         (Q, T, V, E+1) of the shard: the count of variant v of slot (q, t)
         extended by its next e query characters -- a pure function of the
@@ -775,20 +809,23 @@ class Seeder:
         Q, T = slot_frame.shape
         red_q = red_q.to(torch.int64)
         g, gs, begin, _ = self._slot_rows(slot_frame, slot_begin, slot_rem)
-        lo, count = self._initial_search(keys, red_q, g, gs, begin, bucket)
+        lo, count = self._initial_search(keys, red_q, g, gs, begin, bucket,
+                                         stats)
         curves = torch.zeros((T * Q * V, E + 1), dtype=torch.int64,
                              device=dev)
         curves[:, 0] = count
         if E > 0:
             # a cursor with no local occurrence has an all-zero curve
-            widx = torch.nonzero(count > 0).reshape(-1)
-            if widx.numel():
-                curves[widx] = self._count_curves(
-                    keys, red_q, widx, lo, count, gs, begin, Q)[4]
+            with _walk_span(stats):
+                widx = torch.nonzero(count > 0).reshape(-1)
+                _synced(stats)
+                if widx.numel():
+                    curves[widx] = self._count_curves(
+                        keys, red_q, widx, lo, count, gs, begin, Q, stats)[4]
         return curves.reshape(T, Q, V, E + 1).permute(1, 0, 2, 3)
 
     def curve_decide(self, curves, qlens, slot_frame, slot_begin, slot_rem,
-                     hits0, max_cursors: int = 0):
+                     hits0, max_cursors: int = 0, stats=None):
         """Stream decide (delta <= 1): the stage-1 walk (:func:`_slot_walk`)
         and abundance cutoff on the GLOBAL (shard-summed) curves, every
         cursor with a nonzero global count walked.  With ``max_cursors``
@@ -813,15 +850,17 @@ class Seeder:
                 walk = (live & (rank < min(max_cursors, Q * V))).reshape(-1)
                 fixed = ~walk & (gfin > 0) & (gfin <= cfg.occ_cap)
                 base = torch.where(fixed, gfin, 0).reshape(T, Q, V).sum(2)
-            widx = torch.nonzero(walk).reshape(-1)
-            _, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
-                                                slot_rem)
-            r_w = widx // V
-            Lw = _slot_walk(cfg, c[widx], r_w // Q, r_w % Q, begin[r_w],
-                            qlens.to(torch.int64)[gs[r_w]], rem[r_w], base,
-                            hits0)
-            L[widx] = Lw
-            gfin[widx] = c[widx].gather(1, Lw[:, None])[:, 0]
+            with _walk_span(stats):
+                widx = torch.nonzero(walk).reshape(-1)
+                _synced(stats)
+                _, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
+                                                    slot_rem)
+                r_w = widx // V
+                Lw = _slot_walk(cfg, c[widx], r_w // Q, r_w % Q, begin[r_w],
+                                qlens.to(torch.int64)[gs[r_w]], rem[r_w],
+                                base, hits0, stats)
+                L[widx] = Lw
+                gfin[widx] = c[widx].gather(1, Lw[:, None])[:, 0]
 
         def qtv(x):
             return x.reshape(T, Q, V).permute(1, 0, 2)
@@ -829,7 +868,7 @@ class Seeder:
         return qtv(cfg.seed_length + L), qtv(gfin <= cfg.occ_cap)
 
     def _stage1_forced(self, keys, red_q, slot_frame, slot_begin, f_len,
-                       f_keep, bucket=None):
+                       f_keep, bucket=None, stats=None):
         """Stream pass B stage 1 (delta <= 1): each cursor's DECIDED string
         (variant + accepted elongation characters) searched at its decided
         length in the shard -- no walk.  Emits stage 1's cursor dict."""
@@ -857,7 +896,8 @@ class Seeder:
                     valid & (g[a:b] >= 0)[:, None]
                     & fk[a * V:b * V].reshape(b - a, V))
 
-        lo, count = self._batched_search(keys, g.shape[0], make, bucket, k)
+        lo, count = self._batched_search(keys, g.shape[0], make, bucket, k,
+                                         stats)
         QV = Q * V
         cur = self._cursor_dict(lo.reshape(T, QV), count.reshape(T, QV),
                                 fl.reshape(T, QV), torch.zeros_like(lo)
@@ -868,45 +908,47 @@ class Seeder:
     def forced_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
                     slot_rem, hits0, kmer_pos, kmer_frame, sbj_offsets,
                     sbj_lens, trans_sbj, trans_q, red_sbj, subst_fwd,
-                    subst_rev, f_len, f_keep, bucket=None):
+                    subst_rev, f_len, f_keep, bucket=None, stats=None):
         """Stream pass B (delta <= 1): forced stage 1 -> compaction ->
         locate + prescore (stage 2 takes no decision in this mode)."""
         cur = self._stage1_forced(keys, red_q, slot_frame, slot_begin,
-                                  f_len, f_keep, bucket)
-        return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
-                            sbj_lens, trans_sbj, trans_q, qlens, red_q,
-                            red_sbj, subst_fwd, subst_rev,
-                            (slot_frame, slot_begin, slot_rem), hits0)
-
-    def pigeon_count_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
-                          slot_rem, hits0, kmer_pos, kmer_frame,
-                          sbj_offsets, sbj_lens, trans_sbj, trans_q,
-                          red_sbj, subst_fwd, subst_rev, bucket=None):
-        """Stream pass A (delta >= 2): stage 1 + locate + verification,
-        emitting the shard-LOCAL per-slot verified-count matrix
-        (Q*T, E+1)."""
-        cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
-                          slot_rem, hits0, bucket)
+                                  f_len, f_keep, bucket, stats)
         return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
                             sbj_lens, trans_sbj, trans_q, qlens, red_q,
                             red_sbj, subst_fwd, subst_rev,
                             (slot_frame, slot_begin, slot_rem), hits0,
-                            emit_cnt=True)
+                            stats=stats)
+
+    def pigeon_count_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
+                          slot_rem, hits0, kmer_pos, kmer_frame,
+                          sbj_offsets, sbj_lens, trans_sbj, trans_q,
+                          red_sbj, subst_fwd, subst_rev, bucket=None,
+                          stats=None):
+        """Stream pass A (delta >= 2): stage 1 + locate + verification,
+        emitting the shard-LOCAL per-slot verified-count matrix
+        (Q*T, E+1)."""
+        cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
+                          slot_rem, hits0, bucket, stats)
+        return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
+                            sbj_lens, trans_sbj, trans_q, qlens, red_q,
+                            red_sbj, subst_fwd, subst_rev,
+                            (slot_frame, slot_begin, slot_rem), hits0,
+                            emit_cnt=True, stats=stats)
 
     def pigeon_forced_pass(self, keys, red_q, qlens, slot_frame, slot_begin,
                            slot_rem, hits0, kmer_pos, kmer_frame,
                            sbj_offsets, sbj_lens, trans_sbj, trans_q,
                            red_sbj, subst_fwd, subst_rev, keep_dense,
-                           L_dense, bucket=None):
+                           L_dense, bucket=None, stats=None):
         """Stream pass B (delta >= 2): the fused program with the global
         decisions in place of the local ones."""
         cur = self.stage1(keys, red_q, qlens, slot_frame, slot_begin,
-                          slot_rem, hits0, bucket)
+                          slot_rem, hits0, bucket, stats)
         return self._finish(cur, kmer_pos, kmer_frame, sbj_offsets,
                             sbj_lens, trans_sbj, trans_q, qlens, red_q,
                             red_sbj, subst_fwd, subst_rev,
                             (slot_frame, slot_begin, slot_rem), hits0,
-                            forced=(keep_dense, L_dense))
+                            forced=(keep_dense, L_dense), stats=stats)
 
 
 def make_seeder(cfg: SeedConfig) -> Seeder:

@@ -2,13 +2,31 @@
 ``lambda/src/search_datastructures.hpp:91-295``) plus per-phase
 wall-time buckets (the always-available equivalent of the reference's
 compile-time LAMBDA_MICRO_STATS timings, search_datastructures.hpp:118-130,
-256-284)."""
+256-284).
+
+The port's copy of the JAX package's module, with the spans of a search
+call after its fields: ten top-level buckets (``time_load``,
+``time_read``, ``time_seed_prep``, the six phases ``time_seed`` ...
+``time_write`` and ``time_records``) that never overlap, nested spans
+inside them, seeding's device clock and its host syncs.  While a
+torch profiler runs, every bucket is also a ``record_function`` span
+on the profiler's clock."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
+
+import torch
+
+
+def span(name: str):
+    """A ``record_function`` span ``name`` while a torch profiler runs;
+    otherwise nothing (one bool test)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -50,6 +68,24 @@ class StatsHolder:
     seed_len_sum: int = 0
     seed_len_sumsq: int = 0
     seed_len_max: int = 0
+    # the port's spans (seconds): the other top-level buckets -- the index
+    # load, the query read and encode, seeding's host preparation (frames,
+    # seed schedule, uploads), pass-1 scores to records (filters, the
+    # per-match loop) --
+    time_load: float = 0.0
+    time_read: float = 0.0
+    time_seed_prep: float = 0.0
+    time_records: float = 0.0
+    # ... nested: the count curves and slot walk (in time_seed), the
+    # db-stream shard uploads (in time_seed), phase 2's re-search of the
+    # phase-1 losers (spans the buckets of its own work)
+    time_seed_walk: float = 0.0
+    time_stream_upload: float = 0.0
+    time_phase2: float = 0.0
+    # seeding's device-timeline seconds (CUDA events around each seeder
+    # call, retries included; 0 on the CPU) and its device-to-host reads
+    dev_seed_s: float = 0.0
+    seed_syncs: int = 0
 
     def __iadd__(self, o: "StatsHolder"):
         for f in dataclasses.fields(self):
@@ -76,7 +112,8 @@ class StatsHolder:
     def timed(self, bucket: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(bucket):
+                yield
         finally:
             setattr(self, bucket,
                     getattr(self, bucket) + time.perf_counter() - t0)
@@ -129,6 +166,15 @@ class StatsHolder:
                       self.time_seed, self.time_locate, self.time_merge,
                       self.time_extend, self.time_extend_trace,
                       self.time_write))
+            print("   SPANS (s)   load={:.2f} read={:.2f} seedPrep={:.2f}"
+                  " seedWalk={:.2f} records={:.2f} phase2={:.2f}"
+                  " streamUpload={:.2f}".format(
+                      self.time_load, self.time_read, self.time_seed_prep,
+                      self.time_seed_walk, self.time_records,
+                      self.time_phase2, self.time_stream_upload))
+            if self.dev_seed_s or self.seed_syncs:
+                print(f"   [seeding: device {self.dev_seed_s:.2f} s, "
+                      f"host syncs {self.seed_syncs}]")
         if options.verbosity >= 1:
             print(f"Number of total hits:                           {self.hits_final}")
             print(f"Number of Query-Subject pairs:                  {self.pairs}")

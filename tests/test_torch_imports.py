@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 # modules copied from lambda_tpu with one change: citations of the
 # upstream seqan/lambda sources name them by their repository path
 VERBATIM = ["alphabets", "frames", "options", "scoring", "statistics",
-            "stats", "io/__init__", "io/fasta", "io/async_buffer",
+            "io/__init__", "io/fasta", "io/async_buffer",
             "index/taxonomy", "search/records",
             "output/blast_tab", "output/blast_report",
             "tools/__init__", "tools/merge_m8"]
@@ -78,6 +78,28 @@ def test_sam_bam_copy_differs_only_in_its_bgzf_flush():
     port = REPO / "lambda_tpu_torch" / "output" / "sam_bam.py"
     assert parts(port) == parts(REPO / "lambda_tpu" / "output" / "sam_bam.py")
     assert "import zlib" not in port.read_text()
+
+
+def test_stats_copy_differs_only_in_its_spans():
+    """stats.py's StatsHolder is the JAX package's with the port's spans
+    and counters after its fields: the JAX fields come first, in order,
+    with the same defaults, and ``__iadd__`` gives the same results on
+    them."""
+    import dataclasses
+
+    from lambda_tpu.stats import StatsHolder as JStats
+    from lambda_tpu_torch.stats import StatsHolder as TStats
+
+    jf = [(f.name, f.default) for f in dataclasses.fields(JStats)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(TStats)]
+    assert len(tf) > len(jf) and tf[:len(jf)] == jf
+    rng = np.random.default_rng(5)
+    values = [{n: type(d)(rng.integers(0, 1000)) for n, d in jf}
+              for _ in range(2)]
+    j, t = JStats(**values[0]), TStats(**values[0])
+    j += JStats(**values[1])
+    t += TStats(**values[1])
+    assert {n: getattr(t, n) for n, _ in jf} == dataclasses.asdict(j)
 
 
 def test_bgzf_block_matches_jax_package():

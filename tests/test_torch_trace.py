@@ -69,3 +69,33 @@ def test_trace_dir_flushed_when_a_batch_raises(case, tmp_path, monkeypatch):
         tpipe.run_search(opt, device="cpu")
     (trace,) = _traces(tmp_path / "trace")
     assert trace.stat().st_size > 0
+
+
+def test_trace_holds_the_program_spans_and_batches(case, tmp_path):
+    """The StatsHolder buckets and the search loop's batches are spans of
+    the trace, on the profiler's clock."""
+    d = case
+    tdir = tmp_path / "trace"
+    assert tcli.main(["searchp", "-q", str(d / "q.fasta"), "-i",
+                      str(d / "db.lit"), "--device", "cpu", "-o",
+                      str(tmp_path / "t.m8"), "-v", "0", "--trace-dir",
+                      str(tdir)]) == 0
+    (trace,) = _traces(tdir)
+    names = {e.get("name") for e in
+             json.loads(trace.read_text())["traceEvents"]}
+    assert {"time_seed", "time_seed_walk", "time_seed_prep", "time_read",
+            "batch 0"} <= names
+
+
+def test_two_calls_of_one_process_write_two_traces(case, tmp_path):
+    d = case
+    opt = topt.make_search_options(
+        topt.Domain.PROTEIN, query_file=str(d / "q.fasta"),
+        index_file=str(d / "db.lit"), output=str(tmp_path / "x.m8"),
+        verbosity=0)
+    opt.profile_dir = str(tmp_path / "trace")
+    for _ in range(2):
+        tpipe.run_search(opt, device="cpu")
+    first, second = _traces(tmp_path / "trace")
+    assert first.name != second.name
+    assert first.name.split(".")[1] == second.name.split(".")[1]  # the pid
