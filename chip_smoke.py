@@ -6,7 +6,7 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   -- the card's name and power limit (nvidia-smi); no CUDA: exit 1
-2. build    -- build K1-K4 and the rate probe (nvcc, sm_90a, one nvcc per
+2. build    -- build K1-K4, S1 and the rate probe (nvcc, sm_90a, one nvcc per
                source) and the host C++ helpers (g++) in parallel from the
                sources in the checkout, with each kernel's ptxas report
                and K3's per instantiation (registers, stack and spill
@@ -78,6 +78,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
                spread of search seconds per mode; one more pass of the
                default batches under torch.profiler for the device's
                busy time
+   scale_searchsorted -- S1 (csrc/searchsorted.cu) on the main path:
+               its launches counted from 0 over the scale search, and
+               both entries (range search, count curves) held exactly
+               against their plain versions on the inputs of the first
+               call of each seeding phase of that search (phase 1 and
+               phase 2, whose rows are the random queries' re-seeding)
+               and of the BLASTX search below, on the resident keys;
+               per call the rows, the skipped rows, kernel ms and
+               device ms, plain ms and the bound: the longest chain of
+               dependent key loads at the card's random-load latency
+               (one-row searches of the whole index, each on a new key)
+               against the bytes it must move at 3.35 TB/s
 11. scale_blastx -- BLASTX at full width on the same resident index
                (reloaded once the BLASTP context is freed): 1,024 DNA
                reads of 300 nt (70 % coding for 100-aa fragments of
@@ -124,7 +136,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
                per cell, K1 held, shard set-up seconds, device-memory
                peak
 
-then the kernels line (K1-K4) and, last, {"ok": true, "device": {...}}.
+then the kernels line (K1-K4, S1) and, last, {"ok": true, "device": {...}}.
 Kernel ``ms`` is the call as issued (CUDA events around the wrapper's
 call, the measure of every record of this script); ``device_ms`` beside
 it is the device's work alone (the stream held busy by a spin while the
@@ -171,7 +183,8 @@ K2_OPS_PER_CELL = 22
 # ... or, with DPX, 7 instructions (csrc/int_rate.cu's header); the
 # bounds take whichever of the two the card runs faster
 DPX_CELL_INSTR = 7
-KERNELS = ("sw_band", "sw_band_dirs", "sw_band_sub", "sw_rect")
+KERNELS = ("sw_band", "sw_band_dirs", "sw_band_sub", "sw_rect",
+           "searchsorted")
 # the rate probe's modes (csrc/int_rate.cu): name, instructions per thread
 # and iteration
 RATE_MODES = (("add", 8), ("max", 8), ("viaddmax", 8), ("viaddmax_relu", 8),
@@ -1769,13 +1782,15 @@ def distributed_runs(tmp: Path) -> dict:
 PHASE_KEYS = ("seed", "locate", "merge", "extend", "extend_trace", "write")
 
 
-def main_search(opt, devices=None) -> dict:
+def main_search(opt, devices=None, ss_inputs: bool = False) -> dict:
     """run_search on the card (``devices``: the mesh's cells), with the
     hooks of this script only: the resident bytes and the time at which
     SearchContext is ready (index read and uploaded), the context itself
     (for the reruns), and the inputs of the first three K1 launches.
-    Its K1 launches are counted from 0."""
-    from lambda_tpu_torch.ops import sw_band
+    Its K1 and S1 launches are counted from 0.  ``ss_inputs``: also the
+    inputs of S1's first calls of each seeding phase
+    (:func:`searchsorted_inputs`)."""
+    from lambda_tpu_torch.ops import searchsorted as ss, sw_band
     from lambda_tpu_torch.search import pipeline
 
     rec: dict = {}
@@ -1790,20 +1805,253 @@ def main_search(opt, devices=None) -> dict:
 
     pipeline.SearchContext.__init__ = init_hook
     try:
-        with capture("_sw_band_score_cuda", first(3)) as k1_in:
+        with capture("_sw_band_score_cuda", first(3)) as k1_in, \
+                searchsorted_inputs(opt, ss_inputs) as ss_in:
             torch.cuda.reset_peak_memory_stats()
             reset_band_launches()                  # the main path starts
+            ss.launches = 0
             t0 = time.perf_counter()
             rec["stats"] = pipeline.run_search(opt, device="cuda",
                                                devices=devices)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             rec["launches"] = sw_band.launches     # ... and ends
+            rec["ss_launches"] = ss.launches
     finally:
         pipeline.SearchContext.__init__ = init
-    rec.update(k1_inputs=k1_in, load_s=rec["ready"] - t0,
+    rec.update(k1_inputs=k1_in, ss_inputs=ss_in, load_s=rec["ready"] - t0,
                search_s=t1 - rec["ready"], total_s=t1 - t0)
     return rec
+
+
+@contextlib.contextmanager
+def searchsorted_inputs(opt, keep: bool):
+    """With ``keep``, the inputs of S1's first range search and first
+    count curves in each seeding phase of a search with ``opt`` (phase 2:
+    a dispatch with ``opt.search_opts`` in an iterative search), as
+    {(entry, phase): args}: every tensor cloned but the resident keys,
+    which are held by reference.  The calls themselves run."""
+    from lambda_tpu_torch.ops import searchsorted as ss
+    from lambda_tpu_torch.search import pipeline
+
+    captured: dict = {}
+    if not keep:
+        yield captured
+        return
+    cls = pipeline.SearchContext
+    dispatch = cls.dispatch_seeding
+    wrappers = {"range": "_search_range_cuda", "curves": "_count_curves_cuda"}
+    launch = {e: getattr(ss, w) for e, w in wrappers.items()}
+    phase = [1]
+
+    def dispatch_hook(self, qry_seqs, so, stats):
+        phase[0] = 2 if opt.iterative_search and so is opt.search_opts \
+            else 1
+        return dispatch(self, qry_seqs, so, stats)
+
+    def hook(entry):
+        def call(keys, *a):
+            if (entry, phase[0]) not in captured:
+                captured[(entry, phase[0])] = (keys,) + tuple(
+                    x.clone() if torch.is_tensor(x) else x for x in a)
+            return launch[entry](keys, *a)
+        return call
+
+    cls.dispatch_seeding = dispatch_hook
+    for e, w in wrappers.items():
+        setattr(ss, w, hook(e))
+    try:
+        yield captured
+    finally:
+        cls.dispatch_seeding = dispatch
+        for e, w in wrappers.items():
+            setattr(ss, w, launch[e])
+
+
+def device_call_ms(fn) -> float:
+    """One call of ``fn`` timed on the device alone (the stream held busy
+    by a spin while it is enqueued, as ``time_ms(device=True)``)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def ss_load_latency(keys, reps: int = 41) -> dict:
+    """The card's latency of one dependent key load of S1's bisection:
+    one-row range searches of the whole key array, each for a new key row
+    drawn at random (the bisection's last levels miss the L2), less an
+    empty call's time (a row answered without a load), over the rounds
+    of loads such a search takes at most; the same for a row searched
+    again and again (its rows stay in the L2)."""
+    from lambda_tpu_torch.ops import searchsorted as ss
+
+    P, words = keys.shape
+    saved = ss.launches
+    mask = torch.full((1, words), 0xFFFFFFFF, dtype=torch.int64,
+                      device=keys.device)
+    rows = torch.randint(0, P, (reps,), generator=torch.Generator()
+                         .manual_seed(2026)).tolist()
+    no = torch.zeros(1, dtype=torch.bool, device=keys.device)
+    tgt = [keys[r:r + 1].clone() for r in rows]
+
+    def search(t, valid=None):
+        return lambda: ss._search_range_cuda(keys, t, mask, None, None, None,
+                                             None, valid, None)
+
+    search(tgt[0])()                           # the first call: warm
+    fresh = float(np.median([device_call_ms(search(t)) for t in tgt[1:]]))
+    again = float(np.median([device_call_ms(search(tgt[0]))
+                             for _ in range(reps)]))
+    empty = float(np.median([device_call_ms(search(tgt[0], no))
+                             for _ in range(reps)]))
+    ss.launches = saved                # measurement launches do not count
+    rounds = P.bit_length()            # ceil(log2(P + 1)) at most
+    return dict(rows=P, rounds=rounds, fresh_ms=fresh, again_ms=again,
+                empty_ms=empty,
+                load_ns=max(fresh - empty, 0.0) / rounds * 1e6,
+                l2_load_ns=max(again - empty, 0.0) / rounds * 1e6)
+
+
+def ss_initial_ranges(keys, targets, masks, lo0, hi0, bucket, bucket_shift):
+    """The ranges S1 starts from: [lo0, hi0) (0 / P if None) cut to each
+    row's prefix bucket where its mask covers the bucketed prefix (as
+    ``search_range_torch`` does)."""
+    from lambda_tpu_torch.ops import searchsorted as ss
+
+    n, P = targets.shape[0], keys.shape[0]
+    dev = targets.device
+    lo = torch.zeros(n, dtype=torch.int64, device=dev) if lo0 is None \
+        else lo0.clone()
+    hi = torch.full((n,), P, dtype=torch.int64, device=dev) if hi0 is None \
+        else hi0.clone()
+    if bucket is not None and bucket_shift is not None:
+        full = (ss.UINT32_MAX << bucket_shift) & ss.UINT32_MAX \
+            if bucket_shift < 32 else 0
+        usable = (masks[:, 0] & full) == full
+        pfx = targets[:, 0] >> bucket_shift
+        lo = torch.where(usable, torch.maximum(lo, bucket[pfx]), lo)
+        hi = torch.where(usable, torch.minimum(hi, bucket[pfx + 1]), hi)
+        hi = torch.maximum(hi, lo)
+    return lo, hi
+
+
+def floor_log2_1p(x) -> torch.Tensor:
+    """floor(log2(x + 1)) of a non-negative int64 tensor: the fewest
+    bisection rounds that empty a range of x rows."""
+    x = x.clamp(min=0) + 1
+    r = torch.zeros_like(x)
+    for b in (32, 16, 8, 4, 2, 1):
+        big = x >= (1 << b)
+        r += big * b
+        x = torch.where(big, x >> b, x)
+    return r
+
+
+def ss_compare(entry: str, args, dev_info, reps: int = 5) -> dict:
+    """S1's ``entry`` ("range" or "curves") against its plain version on
+    the same card tensors (a main-path call's inputs): exact equality of
+    every output (and of the skipped count), kernel ms and device ms,
+    the plain version's ms on its comparison call, and the bound: the
+    larger of the longest chain of dependent key loads (at least
+    floor(log2(range + 1)) rounds a bisection) at the card's random-load
+    latency (``dev_info["ss_load_ns"]``) and the bytes that must move
+    (inputs read, outputs written; key rows not counted, as the top of
+    the bisection is shared through the L2) at 3.35 TB/s."""
+    from lambda_tpu_torch.ops import searchsorted as ss
+
+    saved = ss.launches
+    dev = args[0].device
+    if entry == "range":
+        keys, tgt, masks, lo0, hi0, bucket, bsh, valid, _ = args
+        n, words = tgt.shape
+
+        def run(fn, sk=None):
+            sk = torch.zeros(1, dtype=torch.int64, device=dev) \
+                if sk is None else sk
+            return (*fn(keys, tgt, masks, lo0, hi0, bucket, bsh, valid, sk),
+                    sk)
+
+        sk_timed = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def launch(sk=None):
+            return run(ss._search_range_cuda, sk)
+
+        def timed_launch():
+            return launch(sk_timed)
+
+        def plain():
+            return run(ss.search_range_torch)
+
+        lo, hi = ss_initial_ranges(keys, tgt, masks, lo0, hi0, bucket, bsh)
+        ok = torch.ones(n, dtype=torch.bool, device=dev) if valid is None \
+            else valid
+        n_valid = int(ok.sum())
+        chain = int(floor_log2_1p(torch.where(ok, hi - lo, 0)).max())
+        nbytes = (n_valid * words * 16 + 16 * n
+                  + (n if valid is not None else 0)
+                  + 8 * n * ((lo0 is not None) + (hi0 is not None)))
+        extra = dict(rows=n, valid_rows=n_valid)
+    else:
+        keys, tgt, lo0, cnt0, chars, plan = args
+        n, words = tgt.shape
+        E = chars.shape[1]
+
+        def launch():
+            return ss._count_curves_cuda(*args)
+
+        timed_launch = launch
+
+        def plain():
+            return ss.count_curves_torch(*args)
+
+        nbytes = n * (words + 2 + E) * 8 + 2 * n * (E + 1) * 8
+        extra = dict(rows=n, steps=E)
+    out_k = launch()
+    out_p, p_ms = timed(plain)
+    err = max(int((a - b).abs().max()) if a.numel() else 0
+              for a, b in zip(out_k, out_p))
+    kt = kernel_times(timed_launch, reps)
+    ss.launches = saved                # comparison launches do not count
+    if entry == "curves":
+        cnt = out_p[1][:, :E]          # step e bisects step e - 1's range
+        chain = int(floor_log2_1p(cnt).sum(dim=1).max()) if n else 0
+    else:
+        extra["skipped_rows"] = int(out_p[2])
+    t_chain = chain * dev_info["ss_load_ns"] * 1e-6
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(entry=entry, **extra, max_abs_err=err, exact_equal=err == 0,
+                **kt, plain_ms=p_ms, chain_loads=chain, chain_ms=t_chain,
+                bytes=nbytes, bytes_ms=t_bytes,
+                bound_ms=max(t_chain, t_bytes),
+                bound_by="latency" if t_chain >= t_bytes else "bytes")
+
+
+def phase_scale_searchsorted(search: str, rec, dev_info) -> list:
+    """S1 against its plain versions on the inputs ``rec`` (main_search
+    with ``ss_inputs``) captured: one line per call; fails the run on any
+    difference, or if the search launched S1 no time or no call of a
+    phase-1 entry was captured."""
+    if rec["ss_launches"] <= 0:
+        raise SystemExit(f"the {search} search launched S1 no time")
+    for entry in ("range", "curves"):
+        if (entry, 1) not in rec["ss_inputs"]:
+            raise SystemExit(f"the {search} search made no S1 {entry} call "
+                             "in phase 1")
+    cmp = []
+    for (entry, ph), args in sorted(rec["ss_inputs"].items()):
+        c = dict(ss_compare(entry, args, dev_info), seeding_phase=ph)
+        emit(phase="scale_searchsorted", search=search,
+             launches=rec["ss_launches"], **c)
+        cmp.append(c)
+    if not all(c["exact_equal"] for c in cmp):
+        raise SystemExit(f"S1 disagrees with its plain version on the "
+                         f"{search} search's inputs")
+    return cmp
 
 
 def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
@@ -1828,10 +2076,17 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
         return scale_opt(tmp, out)
 
     opt = make_opt(tmp / "big.m8")
-    rec = main_search(opt)
+    rec = main_search(opt, ss_inputs=True)
     search_peak = torch.cuda.max_memory_allocated()
     stats, launches, search_s = rec["stats"], rec["launches"], \
         rec["search_s"]
+    keys = rec["ctx"].d_keys
+    dev_info["ss_latency"] = ss_load_latency(keys)
+    dev_info["ss_load_ns"] = dev_info["ss_latency"]["load_ns"]
+    emit(phase="scale_searchsorted_latency", **dev_info["ss_latency"])
+    ss_cmp = phase_scale_searchsorted("blastp", rec, dev_info)
+    del keys
+    rec.pop("ss_inputs")
 
     n_hom, found, share = homolog_share(tmp / "big.m8", n_q)
     cmp = [k1_compare(*x[:7], dev_info, reps=3, x_drop=x[7], nc=x[8])
@@ -1894,7 +2149,8 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
         raise SystemExit("K1 disagrees with its plain version on main-path "
                          "inputs")
     return dict(launches=launches, cmp=cmp, reruns=reruns, peak=search_peak,
-                trace_launches=trace_launches)
+                trace_launches=trace_launches, ss_launches=rec["ss_launches"],
+                ss_cmp=ss_cmp)
 
 
 def homolog_share(m8: Path, n_q: int):
@@ -2017,7 +2273,8 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
              queries_per_s=round(n_q / rec["search_s"], 2),
              phase_s={k: round(getattr(stats, f"time_{k}"), 3)
                       for k in PHASE_KEYS},
-             k1_launches=rec["launches"], peak_device_bytes=peak,
+             k1_launches=rec["launches"], ss_launches=rec["ss_launches"],
+             peak_device_bytes=peak,
              hits_located=stats.hits_after_seeding,
              hits_overflow=stats.hits_overflow,
              cursors_overflow=stats.cursors_overflow,
@@ -2208,7 +2465,9 @@ def phase_scale_blastx(tmp: Path, dev_info, n_q=1024) -> dict:
             index_file=str(tmp / "big.lit"), output=str(out), verbosity=0,
             columns=["std", "qframe"])
 
-    rec = main_search(make_opt(tmp / "big_x.m8"))
+    rec = main_search(make_opt(tmp / "big_x.m8"), ss_inputs=True)
+    ss_cmp = phase_scale_searchsorted("blastx", rec, dev_info)
+    rec.pop("ss_inputs")
     ctx, stats = rec.pop("ctx"), rec["stats"]
     hits: dict = {}
     for line in (tmp / "big_x.m8").read_text().splitlines():
@@ -2259,7 +2518,8 @@ def phase_scale_blastx(tmp: Path, dev_info, n_q=1024) -> dict:
     if not all(c["exact_equal"] for c in cmp):
         raise SystemExit("K1 disagrees with its plain version on the BLASTX "
                          "search's inputs")
-    return dict(launches=rec["launches"], cmp=cmp, reruns=reruns)
+    return dict(launches=rec["launches"], cmp=cmp, reruns=reruns,
+                ss_launches=rec["ss_launches"], ss_cmp=ss_cmp)
 
 
 def rerun_search(ctx, make_opt, out: Path, mode: str, want_m8: bytes,
@@ -2365,6 +2625,13 @@ def cmp_sums(cmp, launches) -> dict:
                    ("ms", "device_ms", "plain_ms", "bound_ms")})
 
 
+def bound_by(cmp) -> str:
+    """What bounds a set of timed launches: their common ``bound_by``
+    ("operations" where there is none), else "mixed"."""
+    by = {c["bound_by"] for c in cmp} or {"operations"}
+    return by.pop() if len(by) == 1 else "mixed"
+
+
 def kernel_entry(name, source, replaces, launches, worst, cmp,
                  **extra) -> dict:
     """One entry of the kernels line: main-path launches, and the sums
@@ -2379,8 +2646,7 @@ def kernel_entry(name, source, replaces, launches, worst, cmp,
         device_ms=sum(c["device_ms"] for c in cmp),
         plain_ms=sum(c["plain_ms"] for c in cmp),
         bound_ms=sum(c["bound_ms"] for c in cmp),
-        bound_by=("operations" if all(c["bound_by"] == "operations"
-                                      for c in cmp) else "bytes"),
+        bound_by=bound_by(cmp),
         library_ms=None, main_path_launches_timed=len(cmp), **extra)
 
 
@@ -2487,6 +2753,20 @@ def main() -> int:
             path="mesh_step (parallel/mesh.py:make_sharded_search_step)",
             path_launches=mstep["per_grid"],
             op_cases=cmp_sums(k4["rows"], k4["launches"])),
+        kernel_entry(
+            "S1 searchsorted", "lambda_tpu_torch/csrc/searchsorted.cu",
+            "none (lambda_tpu/ops/searchsorted.py:search_range, jnp ops "
+            "in a lax.while_loop)",
+            scale["ss_launches"], 0, scale["ss_cmp"],
+            blastx=cmp_sums(blastx["ss_cmp"], blastx["ss_launches"]),
+            load_latency=dev_info["ss_latency"],
+            path_launches=dict(
+                scale_blastx=blastx["ss_launches"],
+                scale_stream=stream["ss_launches"],
+                scale_pigeon=pigeon[1]["ss_launches"],
+                scale_pigeon_stream=pigeon[4]["ss_launches"],
+                **{f"scale_mesh_{q}x{d}": r["ss_launches"]
+                   for (q, d), r in smesh.items()})),
     ])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),

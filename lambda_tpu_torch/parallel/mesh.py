@@ -313,8 +313,9 @@ def make_sharded_search_step(mesh: Mesh, cfg: StepConfig,
     concatenated on its first device and cut to the top-k again (the
     JAX step's all_gather + top_k).  Returns (merged (Q, top_k), db_total
     (Q, 1)), both int32 on the first cell's device; db_total is the sum of
-    the shards' subject lengths."""
-    n_steps = ss.steps_for(n_rows_padded)
+    the shards' subject lengths.  ``n_rows_padded`` (Pmax) bounds the JAX
+    step's bisection; the port's search bisects each range until it is
+    empty, so the argument is kept for the JAX step's signature alone."""
     k = cfg.seed_length
     Qm, Dm = mesh.shape
 
@@ -333,7 +334,7 @@ def make_sharded_search_step(mesh: Mesh, cfg: StepConfig,
         lo, hi = ss.search_range(
             keys, tgt.reshape(S, cfg.words), msk.reshape(S, cfg.words),
             torch.zeros(S, dtype=torch.int64, device=dev),
-            rows.to(torch.int64).reshape(1).expand(S), n_steps)
+            rows.to(torch.int64).reshape(1).expand(S))
         count = torch.clamp(hi - lo, max=cfg.occ_cap)
         occ = torch.arange(cfg.occ_cap, device=dev)
         rowsel = (lo[:, None] + occ[None, :]).clamp(0, keys.shape[0] - 1)

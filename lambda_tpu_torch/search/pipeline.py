@@ -1308,4 +1308,5 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
                 f"{next(_TRACE_CALLS)}.pt.trace.json"))
     progress.finish()
     writer.write_footer()
+    stats.read_device_counters()
     return stats

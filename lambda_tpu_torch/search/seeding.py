@@ -35,14 +35,18 @@ extended by 0..ext_max further query characters -- the JAX package's
 slots then only replays the accept/revert walk on the curves, carrying
 hitsThisSeq (:func:`_slot_walk`, the one copy of that decision for the
 resident seeder, the stream decide and pigeonhole's walk on verified
-counts).  Bisection depths are bounded from the index (largest prefix
-bucket, largest live range) instead of the JAX while-loop's convergence
-test; both give the exact ranges.
+counts).  On the card each batched search and each set of curves is one
+launch of ``csrc/searchsorted.cu``, which bisects every range until it is
+empty, as the JAX while-loop does, and skips padded slots and identity
+substitutions without a key read; on the CPU the plain versions bound
+their steps by the largest initial range.  Both give the exact ranges.
 
 Every entry point takes an optional ``stats`` (a StatsHolder): the count
-curves and the slot walk are then its span ``time_seed_walk``, and each
+curves and the slot walk are then its span ``time_seed_walk``, each
 device-to-host read (a ``.tolist()``, ``nonzero`` or ``int`` of a
-tensor) counts in ``seed_syncs``.  Without it nothing is recorded.
+tensor) counts in ``seed_syncs``, and the batched searches count their
+rows in ``seed_search_rows`` and the invalid ones in
+``seed_search_skipped``.  Without it nothing is recorded.
 """
 
 from __future__ import annotations
@@ -270,6 +274,9 @@ class Seeder:
         # elongation steps: stage 1's walk (delta <= 1), the stream curves
         # and pigeonhole's elongation by verification
         self.E = cfg.ext_max if cfg.adaptive else 0
+        # the count curves' steps (ops/searchsorted.py:curve_plan) on each
+        # device of the keys, made on first use
+        self._curve_plans: dict = {}
 
     # -- stage 1 --------------------------------------------------------
 
@@ -305,25 +312,18 @@ class Seeder:
         return (kmer.pack_prefix(chars, lens, cfg.bits, cfg.cpw, cfg.words),
                 ss.length_masks(lens, cfg.bits, cfg.cpw, cfg.words))
 
-    def _batched_search(self, keys, n_rows, make, bucket, min_len,
-                        stats=None):
+    def _batched_search(self, keys, n_rows, make, bucket, stats=None):
         """(lo, count) (n_rows * V,) of every row's V strings, searched
         over the whole index in batches of rows; ``make(a, b)`` gives rows
-        a..b's packed targets, masks (R, V, words) and validity (R, V)
-        (count 0 where invalid).  ``min_len``: the shortest string, which
-        decides whether the prefix buckets bound the bisection."""
+        a..b's packed targets, masks (R, V, words) and validity (R, V): an
+        invalid string has count 0 and is answered without a key read."""
         cfg = self.cfg
         dev = keys.device
         V, words = self.V, cfg.words
-        P = keys.shape[0]
         bsh = cfg.bucket_shift if (cfg.bucket_m and bucket is not None) \
             else None
         bkt = bucket.to(torch.int64) if bsh is not None else None
-        if bkt is not None and min_len >= cfg.bucket_m:
-            n0 = ss.steps_for(int((bkt[1:] - bkt[:-1]).max()))
-            _synced(stats)
-        else:
-            n0 = ss.steps_for(P)
+        skipped = stats.skipped_counter(dev) if stats is not None else None
         lo = torch.empty(n_rows * V, dtype=torch.int64, device=dev)
         count = torch.empty(n_rows * V, dtype=torch.int64, device=dev)
         rows = max(1, _SEARCH_ROWS // V)
@@ -333,12 +333,12 @@ class Seeder:
             n = (b - a) * V
             lo_c, hi_c = ss.search_range(
                 keys, targets.reshape(n, words), masks.reshape(n, words),
-                torch.zeros(n, dtype=torch.int64, device=dev),
-                torch.full((n,), P, dtype=torch.int64, device=dev),
-                n0, bkt, bsh)
+                bucket=bkt, bucket_shift=bsh, valid=valid.reshape(n),
+                skipped=skipped)
             lo[a * V:b * V] = lo_c
-            count[a * V:b * V] = torch.where(valid.reshape(n), hi_c - lo_c,
-                                             0)
+            count[a * V:b * V] = hi_c - lo_c
+            if stats is not None:
+                stats.seed_search_rows += n
         return lo, count
 
     @staticmethod
@@ -357,10 +357,7 @@ class Seeder:
                                                      begin[a:b])
             return (*self._pack(chars, lens), valid & (g[a:b] >= 0)[:, None])
 
-        min_len = int(self.chunk_len.min()) if self.pigeon \
-            else self.cfg.seed_length
-        return self._batched_search(keys, g.shape[0], make, bucket, min_len,
-                                    stats)
+        return self._batched_search(keys, g.shape[0], make, bucket, stats)
 
     def _cursor_dict(self, lo, count, seed_len, shift, gs, begin, Q, T):
         """(T, Q*V) cursor arrays -> the (Q, T*V) cursor lists, in the JAX
@@ -429,11 +426,11 @@ class Seeder:
         cur["ext_over"] = ext_over
         return cur
 
-    def _count_curves(self, keys, red_q, widx, lo, count, gs, begin, Q,
-                      stats=None):
+    def _count_curves(self, keys, red_q, widx, lo, count, gs, begin, Q):
         """Occurrence-count curves of the cursors ``widx`` (flat (t, q, v)
         indices into the (T, Q*V) arrays): step e re-searches the variant
-        extended by e+1 query characters inside the step-e range.
+        extended by e+1 query characters inside the step-e range
+        (``ss.count_curves``, one launch on the card).
         Returns (t_w, q_w, r_w, lo_curve, cnt_curve), the curves
         (n, E+1)."""
         cfg = self.cfg
@@ -445,43 +442,35 @@ class Seeder:
         qv = widx % QV
         q_w = qv // V
         r_w = t_w * Q + q_w
-        beg_w = begin[r_w]
-        gs_w = gs[r_w]
-        # each cursor's own variant: its seed with the variant's one
-        # substitution (position -1: the identity)
-        ar = torch.arange(k, device=dev)
-        chars = red_q[gs_w[:, None],
-                      (beg_w[:, None] + ar[None, :]).clamp(0, red_q.shape[1]
-                                                           - 1)]
+        # each cursor's seed and the E query characters after it
+        ar = torch.arange(k + E, device=dev)
+        chars = red_q[gs[r_w][:, None],
+                      (begin[r_w][:, None] + ar[None, :])
+                      .clamp(0, red_q.shape[1] - 1)]
+        # its own variant: the seed with the variant's one substitution
+        # (position -1: the identity)
         v_w = qv % V
         pos = torch.as_tensor(self.positions, dtype=torch.int64,
                               device=dev)[v_w]
         rep = torch.as_tensor(self.replacements, dtype=torch.int64,
                               device=dev)[v_w]
-        chars = torch.where(ar[None, :] == pos[:, None], rep[:, None], chars)
-        tgt = self._pack(chars, torch.full((nW,), k, device=dev))[0]
-        lo_c = lo.reshape(-1)[widx]
-        cnt0 = count.reshape(-1)[widx]
-        hi_c = lo_c + cnt0
-        n_ext = 1
-        if nW:
-            n_ext = ss.steps_for(int(cnt0.max()))
-            _synced(stats)
-        lo_curve = [lo_c]
-        cnt_curve = [cnt0]
-        for e in range(E):
-            slen = k + e
-            nxt = (beg_w + slen).clamp(0, red_q.shape[1] - 1)
-            tgt = kmer.append_char(
-                tgt, torch.full((nW,), slen, device=dev), red_q[gs_w, nxt],
-                cfg.bits, cfg.cpw, cfg.words)
-            msk = ss.length_masks(torch.tensor(slen + 1, device=dev),
-                                  cfg.bits, cfg.cpw, cfg.words)
-            lo_c, hi_c = ss.search_range(keys, tgt, msk, lo_c, hi_c, n_ext)
-            lo_curve.append(lo_c)
-            cnt_curve.append(hi_c - lo_c)
-        return (t_w, q_w, r_w, torch.stack(lo_curve, dim=1),
-                torch.stack(cnt_curve, dim=1))
+        seed = torch.where(ar[None, :k] == pos[:, None], rep[:, None],
+                           chars[:, :k])
+        tgt = self._pack(seed, torch.full((nW,), k, device=dev))[0]
+        lo_curve, cnt_curve = ss.count_curves(
+            keys, tgt, lo.reshape(-1)[widx], count.reshape(-1)[widx],
+            chars[:, k:].contiguous(), self._curve_plan_on(dev))
+        return t_w, q_w, r_w, lo_curve, cnt_curve
+
+    def _curve_plan_on(self, dev) -> torch.Tensor:
+        """The count curves' ``ss.curve_plan`` on ``dev``, made once."""
+        plan = self._curve_plans.get(dev)
+        if plan is None:
+            cfg = self.cfg
+            plan = self._curve_plans[dev] = ss.curve_plan(
+                cfg.seed_length, self.E, cfg.bits, cfg.cpw,
+                cfg.words).to(dev)
+        return plan
 
     def _walk(self, keys, red_q, qlens, walk, lo, count, seed_len, gs, begin,
               rem, hits0, Q, T, stats=None):
@@ -496,7 +485,7 @@ class Seeder:
             if widx.numel() == 0:
                 return
             t_w, q_w, r_w, lo_curve, cnt_curve = self._count_curves(
-                keys, red_q, widx, lo, count, gs, begin, Q, stats)
+                keys, red_q, widx, lo, count, gs, begin, Q)
             cnt_t = count.reshape(T, Q, self.V)
             fixed = (cnt_t > 0) & (cnt_t <= cfg.occ_cap) \
                 & ~walk.reshape(T, Q, self.V)
@@ -821,7 +810,7 @@ class Seeder:
                 _synced(stats)
                 if widx.numel():
                     curves[widx] = self._count_curves(
-                        keys, red_q, widx, lo, count, gs, begin, Q, stats)[4]
+                        keys, red_q, widx, lo, count, gs, begin, Q)[4]
         return curves.reshape(T, Q, V, E + 1).permute(1, 0, 2, 3)
 
     def curve_decide(self, curves, qlens, slot_frame, slot_begin, slot_rem,
@@ -896,7 +885,7 @@ class Seeder:
                     valid & (g[a:b] >= 0)[:, None]
                     & fk[a * V:b * V].reshape(b - a, V))
 
-        lo, count = self._batched_search(keys, g.shape[0], make, bucket, k,
+        lo, count = self._batched_search(keys, g.shape[0], make, bucket,
                                          stats)
         QV = Q * V
         cur = self._cursor_dict(lo.reshape(T, QV), count.reshape(T, QV),

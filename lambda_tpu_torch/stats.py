@@ -86,6 +86,12 @@ class StatsHolder:
     # call, retries included; 0 on the CPU) and its device-to-host reads
     dev_seed_s: float = 0.0
     seed_syncs: int = 0
+    # seeding's batched range searches (ops/searchsorted.py): the rows
+    # searched, and the invalid ones (padded slots, identity
+    # substitutions) answered without a key read -- counted on the device
+    # (see skipped_counter) and read once the call's work is done
+    seed_search_rows: int = 0
+    seed_search_skipped: int = 0
 
     def __iadd__(self, o: "StatsHolder"):
         for f in dataclasses.fields(self):
@@ -95,6 +101,23 @@ class StatsHolder:
                 setattr(self, f.name,
                         getattr(self, f.name) + getattr(o, f.name))
         return self
+
+    def skipped_counter(self, device) -> torch.Tensor:
+        """The (1,) int64 tensor on ``device`` that the range searches add
+        their skipped rows into, without a host read; made on first use.
+        :meth:`read_device_counters` moves the counts into
+        ``seed_search_skipped``."""
+        counters = self.__dict__.setdefault("_device_counters", {})
+        if device not in counters:
+            counters[device] = torch.zeros(1, dtype=torch.int64,
+                                           device=device)
+        return counters[device]
+
+    def read_device_counters(self) -> None:
+        """Add the device counters into ``seed_search_skipped``: one read
+        per device, made when the call's work is done."""
+        for c in self.__dict__.pop("_device_counters", {}).values():
+            self.seed_search_skipped += int(c)
 
     def add_seed_lens(self, sl) -> None:
         """Accumulate located-seed lengths (any integer array-like)."""
@@ -175,6 +198,9 @@ class StatsHolder:
             if self.dev_seed_s or self.seed_syncs:
                 print(f"   [seeding: device {self.dev_seed_s:.2f} s, "
                       f"host syncs {self.seed_syncs}]")
+            if self.seed_search_rows:
+                print(f"   [seed search: rows {self.seed_search_rows}, "
+                      f"skipped {self.seed_search_skipped}]")
         if options.verbosity >= 1:
             print(f"Number of total hits:                           {self.hits_final}")
             print(f"Number of Query-Subject pairs:                  {self.pairs}")

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from lambda_tpu_torch.ops import sw_band, sw_rect
+from lambda_tpu_torch.ops import searchsorted as ss, sw_band, sw_rect
 
 GF, GE = -12, -1
 
@@ -343,3 +343,179 @@ def test_bisulfite_classes_on_the_card(card, monkeypatch):
     sc_cpu, tr_cpu = extend._trace_device(m, res_cpu, *ext, GF, GE, True)
     np.testing.assert_array_equal(sc, sc_cpu)
     assert tr == tr_cpu
+
+
+def _packed(chars, lens, bits, cpw, words):
+    """Strings of ranks packed as the index packs its keys: rank + 1,
+    MSB-first, left-aligned, 0 past ``lens``."""
+    out = np.zeros((len(chars), words), np.int64)
+    for j in range(min(chars.shape[1], cpw * words)):
+        v = np.where(j < lens, chars[:, j] + 1, 0)
+        out[:, j // cpw] += v << (32 - ((j % cpw) + 1) * bits)
+    return out
+
+
+def _search_case(seed, words, n=3000, P=20000):
+    """Sorted keys of ``words`` words (3 bits a character) drawn from a
+    small pool of strings, so that rows repeat heavily, one in five cut
+    short; targets: prefixes of key strings, random strings, strings
+    below the first key (0) and past the last (all ones), cut at every
+    length."""
+    rng = np.random.default_rng(seed)
+    bits, cpw = 3, 10
+    L = cpw * words
+    pool = rng.integers(0, 6, (P // 40, L))
+    kch = pool[rng.integers(0, len(pool), P)]
+    klen = np.where(rng.random(P) < 0.2, rng.integers(0, L + 1, P), L)
+    keys = _packed(kch, klen, bits, cpw, words)
+    keys = keys[np.lexsort(tuple(keys[:, w] for w in reversed(range(words))))]
+    ch = kch[rng.integers(0, P, n)]
+    rnd = rng.random(n) < 0.3
+    ch[rnd] = rng.integers(0, 6, (int(rnd.sum()), L))
+    lens = rng.integers(0, L + 1, n)
+    tgt = _packed(ch, lens, bits, cpw, words)
+    tgt[:40] = 0
+    tgt[40:80] = 0xFFFFFFFF
+    masks = ss.length_masks(torch.as_tensor(lens), bits, cpw, words).numpy()
+    return rng, keys, tgt & masks, masks, ch, bits, cpw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 2, 4, 5])
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_search_range_kernel_matches_plain_version(card, words, bucketed):
+    """csrc/searchsorted.cu's range search == search_range_torch, exactly,
+    at 1, 2 and 4 words and 5 (the loop over words): full searches, random
+    initial ranges (empty, inverted, outside the array), with and without
+    the prefix table and a validity mask; one launch per call, and the
+    skipped counter counts the invalid rows."""
+    rng, keys, tgt, masks, _, bits, _ = _search_case(words, words)
+    n, P = len(tgt), len(keys)
+    a, b = rng.integers(-3, P + 3, (2, n))
+    extra = {}
+    if bucketed:
+        m = 2
+        extra = dict(bucket=torch.as_tensor(ss.prefix_table(
+            keys[:, 0].astype(np.uint32), bits, m)).to(torch.int64),
+            bucket_shift=32 - bits * m)
+    valid = rng.random(n) < 0.7
+    cases = [(None, None, None),
+             (np.minimum(a, b).clip(0, P), np.maximum(a, b).clip(0, P), None),
+             (a.clip(0, P), b.clip(0, P), valid),
+             (a, b, valid)]
+    found = None
+    for lo0, hi0, ok in cases:
+        def on(dev):
+            def t(x):
+                return None if x is None else torch.as_tensor(x, device=dev)
+            kw = {k: v.to(dev) if torch.is_tensor(v) else v
+                  for k, v in extra.items()}
+            sk = torch.zeros(1, dtype=torch.int64, device=dev)
+            return (*ss.search_range(t(keys), t(tgt), t(masks), t(lo0),
+                                     t(hi0), valid=t(ok), skipped=sk, **kw),
+                    sk)
+        want = on("cpu")
+        before = ss.launches
+        got = on(card)
+        assert ss.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (lo0 is None, ok is None)
+        if ok is not None:
+            assert int(got[2]) == int((~valid).sum()) > 0
+            assert bool((got[1] == got[0]).cpu()[torch.as_tensor(~valid)]
+                        .all())
+        if found is None:
+            found = int((want[1] - want[0]).sum())
+    assert found > n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 2, 4, 5])
+def test_count_curves_kernel_matches_plain_version(card, words):
+    """csrc/searchsorted.cu's curve search == count_curves_torch (the
+    per-step loop of search_range_torch), exactly, for cursors found at
+    a seed length and extended by their strings' next characters up to
+    the key's capacity (words past it appended nowhere); one launch."""
+    _, keys, _, _, ch, bits, cpw = _search_case(10 + words, words)
+    k = 5
+    E = cpw * words - k
+    tgt = _packed(ch[:, :k], np.full(len(ch), k), bits, cpw, words)
+    masks = ss.length_masks(torch.full((len(ch),), k), bits, cpw, words)
+    lo, hi = ss.search_range_torch(torch.as_tensor(keys),
+                                   torch.as_tensor(tgt), masks)
+    live = hi > lo
+    plan = ss.curve_plan(k, E + 2, bits, cpw, words)
+    nxt = torch.as_tensor(np.concatenate([ch[:, k:], ch[:, :2]], axis=1))
+    args = [torch.as_tensor(keys), torch.as_tensor(tgt)[live], lo[live],
+            (hi - lo)[live], nxt[live].contiguous(), plan]
+    want = ss.count_curves_torch(*args)
+    before = ss.launches
+    got = ss.count_curves(*(torch.as_tensor(x, device=card) for x in args))
+    assert ss.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[1][:, E] > 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_seeding_on_the_card_counts_and_skips_as_on_the_cpu(card, tmp_path):
+    """A BLASTP search of 20 planted and 8 random proteins on the card:
+    the m8 is the CPU's to the byte, every seeding search launches the
+    kernel, and seed_search_rows / seed_search_skipped equal the CPU's,
+    where the plain version counts the invalid rows itself."""
+    from lambda_tpu_torch import cli, options
+    from lambda_tpu_torch.io import fasta
+    from lambda_tpu_torch.search import pipeline
+
+    rng = np.random.default_rng(21)
+    letters = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    db = letters[rng.integers(0, 20, (60, 300))]
+    fasta.write_fasta(tmp_path / "db.fasta", [
+        fasta.SeqRecord(f"s{i}", r.tobytes()) for i, r in enumerate(db)])
+    qs = []
+    for i in range(20):
+        q = db[i * 3, 40:200].copy()
+        q[rng.integers(0, len(q), 8)] = letters[rng.integers(0, 20, 8)]
+        qs.append(fasta.SeqRecord(f"q{i}", q.tobytes()))
+    qs += [fasta.SeqRecord(f"r{i}", letters[rng.integers(0, 20, 150)]
+                           .tobytes()) for i in range(8)]
+    fasta.write_fasta(tmp_path / "q.fasta", qs)
+    assert cli.main(["mkindexp", "-d", str(tmp_path / "db.fasta"), "-i",
+                     str(tmp_path / "db.lit"), "-v", "0"]) == 0
+    out, st = {}, {}
+    for dev in ("cpu", "cuda"):
+        opt = options.make_search_options(
+            options.Domain.PROTEIN, query_file=str(tmp_path / "q.fasta"),
+            index_file=str(tmp_path / "db.lit"),
+            output=str(tmp_path / f"{dev}.m8"), verbosity=0,
+            query_batch_size=8)
+        before = ss.launches
+        st[dev] = pipeline.run_search(opt, device=dev)
+        launched = ss.launches - before
+        out[dev] = (tmp_path / f"{dev}.m8").read_bytes()
+    assert launched > 0 and st["cpu"].hits_final > 0
+    assert out["cuda"] == out["cpu"]
+    assert st["cuda"].seed_search_rows == st["cpu"].seed_search_rows > 0
+    assert 0 < st["cuda"].seed_search_skipped \
+        == st["cpu"].seed_search_skipped < st["cpu"].seed_search_rows
+
+
+@pytest.mark.cuda
+def test_searchsorted_refuses_wrong_dtype_or_device(card):
+    _, keys, tgt, masks, _, _, _ = _search_case(1, 2, n=64, P=256)
+    k, t, m = (torch.as_tensor(x, device=card) for x in (keys, tgt, masks))
+    for bad in (dict(keys=k.to(torch.int32)), dict(targets=t.cpu()),
+                dict(masks=m[:, :1].contiguous()),
+                dict(valid=torch.ones(64, dtype=torch.int32, device=card)),
+                dict(bucket=torch.zeros(9, dtype=torch.int32, device=card),
+                     bucket_shift=29)):
+        kw = dict(keys=k, targets=t, masks=m) | bad
+        with pytest.raises(ValueError):
+            ss.search_range(**kw)
+    plan = ss.curve_plan(3, 4, 3, 10, 2).to(card)
+    nxt = torch.zeros((64, 4), dtype=torch.int64, device=card)
+    lo = torch.zeros(64, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError):
+        ss.count_curves(k, t, lo, lo, nxt.to(torch.int8), plan)
+    with pytest.raises(ValueError):
+        ss.count_curves(k, t, lo, lo, nxt, plan.cpu())

@@ -34,12 +34,10 @@ def _targets(rng, idx, concat, lens):
     return np.stack(rows), np.asarray(lens, np.int32)
 
 
-@pytest.mark.parametrize("bucketed,pad_rows", [(False, 0), (True, 0),
-                                               (True, 13)])
-def test_search_range_matches_jax(bucketed, pad_rows):
-    """(lo, hi) equal the JAX search for mixed prefix lengths (shorter than
-    the bucket prefix, equal, longer, full capacity), with and without
-    the prefix table, and on keys padded with 0xFFFFFFFF rows."""
+def _search_case(bucketed, pad_rows):
+    """Keys (padded with 0xFFFFFFFF rows), targets of mixed prefix lengths
+    (shorter than the bucket prefix, equal, longer, full capacity) packed
+    by both packages, and the prefix table where ``bucketed``."""
     rng = np.random.default_rng(11 + pad_rows)
     _, concat, _, idx = _make_index(seed=20 + pad_rows, sizes=(300, 200, 150))
     keys = idx.keys
@@ -65,20 +63,129 @@ def test_search_range_matches_jax(bucketed, pad_rows):
     tm = ts.length_masks(torch.as_tensor(lens), bits, cpw, words)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt).astype(np.int64))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm).astype(np.int64))
-    steps = js.steps_for(n)
     extra = (jnp.asarray(table), 32 - bits * m) if bucketed else ()
+    textra = (torch.as_tensor(table).long(), 32 - bits * m) \
+        if bucketed else ()
+    return keys, lens, jt, jm, tt, tm, extra, textra
+
+
+@pytest.mark.parametrize("bucketed,pad_rows", [(False, 0), (True, 0),
+                                               (True, 13)])
+def test_search_range_matches_jax(bucketed, pad_rows):
+    """(lo, hi) equal the JAX search for mixed prefix lengths (shorter than
+    the bucket prefix, equal, longer, full capacity), with and without
+    the prefix table, and on keys padded with 0xFFFFFFFF rows."""
+    keys, lens, jt, jm, tt, tm, extra, textra = _search_case(bucketed,
+                                                             pad_rows)
+    n = len(keys)
+    steps = js.steps_for(n)
     jlo, jhi = js.search_range(jnp.asarray(keys), jt, jm,
                                jnp.zeros(len(lens), jnp.int32),
                                jnp.full(len(lens), n, jnp.int32), steps,
                                *extra)
-    textra = (torch.as_tensor(table).long(), 32 - bits * m) \
-        if bucketed else ()
     tlo, thi = ts.search_range(torch.as_tensor(keys.astype(np.int64)), tt, tm,
                                torch.zeros(len(lens), dtype=torch.int64),
-                               torch.full((len(lens),), n), steps, *textra)
+                               torch.full((len(lens),), n), *textra)
     np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
     assert (thi - tlo).sum() > 0, "fixture found no occurrences"
+
+
+@pytest.mark.parametrize("bucketed,pad_rows", [(False, 0), (True, 0),
+                                               (True, 13)])
+def test_search_range_own_bound_equals_fixed_steps(bucketed, pad_rows):
+    """The plain version bounds the bisection by the largest initial
+    range (after the prefix table) and gives the JAX search's result at
+    the fixed step count ``steps_for(P)``, on full and on narrowed initial
+    ranges; None for lo0/hi0 is the full search."""
+    keys, lens, jt, jm, tt, tm, extra, textra = _search_case(bucketed,
+                                                             pad_rows)
+    k = torch.as_tensor(keys.astype(np.int64))
+    n, N = len(keys), len(lens)
+
+    def fixed(lo0, hi0):
+        jlo, jhi = js.search_range(jnp.asarray(keys), jt, jm,
+                                   jnp.asarray(lo0, jnp.int32),
+                                   jnp.asarray(hi0, jnp.int32),
+                                   js.steps_for(n), *extra)
+        return (torch.from_numpy(np.array(jlo, np.int64)),
+                torch.from_numpy(np.array(jhi, np.int64)))
+
+    full = fixed(np.zeros(N), np.full(N, n))
+    for got in (ts.search_range(k, tt, tm, None, None, *textra),
+                ts.search_range_torch(k, tt, tm,
+                                      torch.zeros(N, dtype=torch.int64),
+                                      torch.full((N,), n), *textra)):
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    lo0 = (full[0] - 2).clamp(min=0)
+    hi0 = (full[1] + 3).clamp(max=n)
+    want = fixed(lo0.numpy(), hi0.numpy())
+    got = ts.search_range(k, tt, tm, lo0, hi0, *textra)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(want[0], full[0]) and torch.equal(want[1], full[1])
+
+
+@pytest.mark.parametrize("bucketed,pad_rows", [(False, 0), (True, 0),
+                                               (True, 13)])
+def test_search_range_invalid_rows_are_empty_and_counted(bucketed,
+                                                         pad_rows):
+    """An invalid row answers [lo0, lo0) (count 0) and adds one to
+    ``skipped``; the valid rows keep their ranges."""
+    keys, lens, _, _, tt, tm, _, textra = _search_case(bucketed, pad_rows)
+    k = torch.as_tensor(keys.astype(np.int64))
+    N = len(lens)
+    valid = torch.arange(N) % 3 != 1
+    lo0 = torch.full((N,), 2, dtype=torch.int64)
+    hi0 = torch.full((N,), len(keys), dtype=torch.int64)
+    want = ts.search_range(k, tt, tm, lo0, hi0, *textra)
+    skipped = torch.zeros(1, dtype=torch.int64)
+    lo, hi = ts.search_range(k, tt, tm, lo0, hi0, *textra,
+                             valid=valid, skipped=skipped)
+    assert int(skipped) == int((~valid).sum()) > 0
+    assert torch.equal(lo[valid], want[0][valid])
+    assert torch.equal(hi[valid], want[1][valid])
+    assert (lo[~valid] == 2).all() and (hi[~valid] == 2).all()
+    assert (want[1] - want[0])[~valid].sum() > 0, "no skipped occurrence"
+
+
+@pytest.mark.parametrize("bits,cpw,words,k", [(4, 8, 4, 10), (4, 8, 4, 11),
+                                              (3, 10, 2, 7), (5, 6, 3, 4)])
+def test_count_curves_plain_equals_append_char_loop(bits, cpw, words, k):
+    """count_curves (on the CPU, its plain version) with ``curve_plan``
+    gives the curves of the per-step loop it replaced in the seeder:
+    ``kmer.append_char`` of the next character, ``length_masks`` one
+    longer, a search within the last range."""
+    rng = np.random.default_rng(bits * 100 + k)
+    alph = min(10, (1 << bits) - 2)
+    L = cpw * words
+    E = L - k
+    strings = rng.integers(0, alph, (40, L))
+    src = strings[rng.integers(0, 40, 4000)]
+    # half the rows leave their string after 2k characters
+    src[:2000, 2 * k:] = rng.integers(0, alph, (2000, max(L - 2 * k, 0)))
+    keys = tk.pack_prefix(torch.as_tensor(src), torch.full((4000,), L), bits,
+                          cpw, words).numpy()
+    keys = torch.as_tensor(
+        keys[np.lexsort(tuple(keys[:, w] for w in reversed(range(words))))])
+    q = torch.as_tensor(strings[rng.integers(0, 40, 64)])
+    tgt = tk.pack_prefix(q[:, :k], torch.full((64,), k), bits, cpw, words)
+    lo, hi = ts.search_range(keys, tgt, ts.length_masks(
+        torch.full((64,), k), bits, cpw, words))
+    assert (hi > lo).all()
+    got = ts.count_curves(keys, tgt, lo, hi - lo, q[:, k:].contiguous(),
+                          ts.curve_plan(k, E, bits, cpw, words))
+    los, cnts, t, lo_c, hi_c = [lo], [hi - lo], tgt, lo, hi
+    for e in range(E):
+        t = tk.append_char(t, torch.full((64,), k + e), q[:, k + e], bits,
+                           cpw, words)
+        msk = ts.length_masks(torch.tensor(k + e + 1), bits, cpw, words)
+        lo_c, hi_c = ts.search_range(keys, t, msk, lo_c, hi_c)
+        los.append(lo_c)
+        cnts.append(hi_c - lo_c)
+    assert torch.equal(got[0], torch.stack(los, dim=1))
+    assert torch.equal(got[1], torch.stack(cnts, dim=1))
+    assert got[1].shape == (64, E + 1) and (got[1][:, -1] > 0).any()
+    assert (got[1][:, -1] < got[1][:, 0]).any()
 
 
 def test_length_masks_match_jax():
