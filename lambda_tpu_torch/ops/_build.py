@@ -5,11 +5,13 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``build/lambda_tpu_torch/`` at the repository root, keyed by a hash of the
 source and the shared headers, and loaded with ``ctypes``.  Nothing is
 built at import time: the first launch builds.  Separate sources build
-in parallel (``load`` from several threads).
+in parallel (``load`` from several threads).  Every launch runs under
+:func:`launch_stream`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
@@ -73,3 +77,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def launch_stream(dev: torch.device):
+    """The raw handle of ``dev``'s current CUDA stream, with ``dev`` the
+    current device while the block runs.  A hand-written launch (and its
+    ``cudaFuncSetAttribute``) acts in the current device's context, so a
+    launch into another card's stream -- a mesh cell on cuda:1 while
+    cuda:0 is current -- has to be made under that card.  The guard is a
+    device exchange on the host: no launch, no synchronisation."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream

@@ -254,10 +254,11 @@ def _search_range_cuda(keys, targets, masks, lo0, hi0, bucket, bucket_shift,
         + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong] \
         + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    err = fn(keys.data_ptr(), P, words, targets.data_ptr(), masks.data_ptr(),
-             _ptr(lo0), _ptr(hi0), _ptr(valid), _ptr(bucket),
-             int(bucket_shift), n, lo.data_ptr(), hi.data_ptr(),
-             _ptr(skipped), torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launch_stream(dev) as stream:
+        err = fn(keys.data_ptr(), P, words, targets.data_ptr(),
+                 masks.data_ptr(), _ptr(lo0), _ptr(hi0), _ptr(valid),
+                 _ptr(bucket), int(bucket_shift), n, lo.data_ptr(),
+                 hi.data_ptr(), _ptr(skipped), stream)
     if err != 0:
         raise RuntimeError(f"searchsorted range launch failed: cudaError "
                            f"{err}")
@@ -289,10 +290,11 @@ def _count_curves_cuda(keys, targets, lo, count, chars, plan):
         + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] \
         + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    err = fn(keys.data_ptr(), P, words, targets.data_ptr(), lo.data_ptr(),
-             count.data_ptr(), chars.data_ptr(), plan.data_ptr(), E, n,
-             lo_curve.data_ptr(), cnt_curve.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launch_stream(dev) as stream:
+        err = fn(keys.data_ptr(), P, words, targets.data_ptr(),
+                 lo.data_ptr(), count.data_ptr(), chars.data_ptr(),
+                 plan.data_ptr(), E, n, lo_curve.data_ptr(),
+                 cnt_curve.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"searchsorted curve launch failed: cudaError "
                            f"{err}")

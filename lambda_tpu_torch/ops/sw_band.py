@@ -295,12 +295,12 @@ def _sw_band_score_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend,
     G, R, S = warp_config(B, D)
     scratch = (torch.empty(3 * S * SEG * B, dtype=torch.int32,
                            device=q.device) if S > 1 else None)
-    err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
-             subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
-             G, R, S, int(x_drop), int(nc),
-             scratch.data_ptr() if scratch is not None else None,
-             _warp_smem(G, C), out.data_ptr(),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
+                 subst8.data_ptr(), B, N, D, C, int(gap_first),
+                 int(gap_extend), G, R, S, int(x_drop), int(nc),
+                 scratch.data_ptr() if scratch is not None else None,
+                 _warp_smem(G, C), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     launches += 1
@@ -402,11 +402,12 @@ def _sw_band_score_sub_cuda(q, s, d_rows, subst8, D, gap_first,
     scratch = (torch.empty(3 * WP * S * blocks * SUB_THREADS,
                            dtype=torch.int32, device=q.device)
                if S > 1 else None)
-    err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
-             subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
-             WP, S, scratch.data_ptr() if scratch is not None else None,
-             smem, out.data_ptr(),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
+                 subst8.data_ptr(), B, N, D, C, int(gap_first),
+                 int(gap_extend), WP, S,
+                 scratch.data_ptr() if scratch is not None else None,
+                 smem, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     launches_sub += 1
@@ -515,12 +516,13 @@ def _sw_band_align_cuda(q, s, d_rows, subst8, D, gap_first, gap_extend):
                           for _ in range(3))
     scratch = (torch.empty(3 * S * SEG * B, dtype=torch.int32, device=dev)
                if S > 1 else None)
-    err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
-             subst8.data_ptr(), B, N, D, C, int(gap_first), int(gap_extend),
-             G, R, S, scratch.data_ptr() if scratch is not None else None,
-             _warp_smem(G, C), dirs.data_ptr(), best.data_ptr(),
-             end_j.data_ptr(), end_w.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launch_stream(dev) as stream:
+        err = fn(q.data_ptr(), s.data_ptr(), d_rows.data_ptr(),
+                 subst8.data_ptr(), B, N, D, C, int(gap_first),
+                 int(gap_extend), G, R, S,
+                 scratch.data_ptr() if scratch is not None else None,
+                 _warp_smem(G, C), dirs.data_ptr(), best.data_ptr(),
+                 end_j.data_ptr(), end_w.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
     launches_dirs += 1

@@ -124,9 +124,10 @@ def _sw_score_cuda(q, s, subst8, gap_first, gap_extend):
     if smem > _SMEM_MAX:
         raise ValueError(f"K4: a {C} x {C} matrix and {W} strips need "
                          f"{smem} bytes of shared memory")
-    err = fn(q.data_ptr(), s.data_ptr(), subst8.data_ptr(), B, M, N, C,
-             int(gap_first), int(gap_extend), R, W, P, smem, out.data_ptr(),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), s.data_ptr(), subst8.data_ptr(), B, M, N, C,
+                 int(gap_first), int(gap_extend), R, W, P, smem,
+                 out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
     launches += 1

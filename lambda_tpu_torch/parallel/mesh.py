@@ -43,6 +43,7 @@ from .. import frames as fr
 from ..index.build import KmerIndex, build_kmer_index
 from ..ops import kmer as kmer_ops, searchsorted as ss, sw_band, sw_rect
 from ..search import seeding
+from ..stats import card_clock, timed
 
 
 def shard_index(red_frames: list[np.ndarray], alphabet_size: int,
@@ -198,6 +199,11 @@ def _tensor_on(x, dev: torch.device, dtype=None) -> torch.Tensor:
     return x.to(dev, dtype=dtype) if dtype is not None else x.to(dev)
 
 
+# the most bytes of one part that Mesh.reduce_db moves between devices at
+# once
+REDUCE_SLICE_BYTES = 256 << 20
+
+
 class Mesh:
     """A (q_shards, db_shards) grid of torch devices, row-major: cell
     (i, j) is ``devices[i * db_shards + j]``.  Several cells may name one
@@ -227,10 +233,28 @@ class Mesh:
 
     def reduce_db(self, parts: list) -> torch.Tensor:
         """The psum over 'db': the sum of one q row's cell tensors, on the
-        row's first device."""
-        out = parts[0]
-        for p in parts[1:]:
-            out = out + p.to(out.device)
+        row's first device.  The caller hands the parts over: the sum is
+        taken in place in ``parts[0]`` and ``parts`` is emptied as it
+        goes.  Each other part crosses to that device in slices of at most
+        ``REDUCE_SLICE_BYTES`` along its outermost dimension and is released
+        once added, so the first device holds the sum and one slice, not
+        every cell's part at once (the seeding curves are the size of the
+        batch's slots times variants times elongations)."""
+        out = parts.pop(0)
+        outer = max(range(out.dim()), key=out.stride, default=None)
+        while parts:
+            p = parts.pop(0)
+            if outer is None:
+                out += p.to(out.device)
+                continue
+            n = out.shape[outer]
+            row = max(1, out.numel() // max(n, 1) * out.element_size())
+            step = max(1, REDUCE_SLICE_BYTES // row)
+            for a in range(0, n, step):
+                k = min(step, n - a)
+                out.narrow(outer, a, k).add_(
+                    p.narrow(outer, a, k).to(out.device))
+            del p
         return out
 
     def _place(self, part_of, value_of) -> list:
@@ -371,7 +395,8 @@ def make_sharded_search_step(mesh: Mesh, cfg: StepConfig,
             gathered = torch.cat([t.to(tops[0].device) for t in tops], dim=1)
             merged.append(torch.topk(gathered, cfg.top_k, dim=1).values
                           .to(mesh.devices[0]))
-            total = mesh.reduce_db([sbj_len[c].to(torch.int64).reshape(())
+            total = mesh.reduce_db([sbj_len[c].to(torch.int64, copy=True)
+                                    .reshape(())
                                     for c in mesh.row(i)])
             totals.append(total.to(mesh.devices[0]).expand(
                 red_q[c0].shape[0], 1))
@@ -467,18 +492,23 @@ class ShardedBandScorer:
             sw_band.plan_nc(self.N, self.D) if x_drop else 0)
 
     def __call__(self, trans_q, trans_sbj, offsets, lengths, qry_id,
-                 qry_start, qry_len, subj_id, d_lo, d_row, e8) -> list:
+                 qry_start, qry_len, subj_id, d_lo, d_row, e8,
+                 card_events=None) -> list:
         """Per-cell inputs (``Mesh.put_*``): trans_q the (G, L) query frame
         rows (put_q); trans_sbj, offsets, lengths the local subject shards
         (put_db); the match arrays (q_shards, db_shards, Bp) with LOCAL ids
         -- qry_id relative to the q block's first frame row, subj_id the
         frame within the db shard -- and padding rows of qry_len 0, d_row
         -1 (put_cells); e8 the int8 matrix (put_all).  Returns each cell's
-        scores, a list in cell order."""
+        scores, a list in cell order.  ``card_events``: a list that takes
+        each cell's CUDA events (stats.card_clock)."""
         args = (trans_q, trans_sbj, offsets, lengths, qry_id, qry_start,
                 qry_len, subj_id, d_lo, d_row, e8)
-        return [self.cell(c, *(a[c] for a in args))
-                for c in range(len(self.mesh.devices))]
+        out = []
+        for c, dev in enumerate(self.mesh.devices):
+            with card_clock(card_events, dev):
+                out.append(self.cell(c, *(a[c] for a in args)))
+        return out
 
 
 def make_sharded_band_scorer(mesh: Mesh, N: int, D: int, gap_first: int,
@@ -503,13 +533,15 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
 
     Returns ``step(keys, pos, frame, offsets, lengths, trans, red, red_q,
     qlens, slot_frame, slot_begin, slot_rem, hits0, trans_q, subst_fwd,
-    subst_rev, bucket, stats=None)``: index and subject shards per cell from
-    ``Mesh.put_db`` (keys int64, offsets and lengths int64; bucket may be
-    None), query inputs from ``Mesh.put_q``, matrices from
-    ``Mesh.put_all``.  It returns each cell's pass-B result (the fused
+    subst_rev, bucket, stats=None, card_events=None)``: index and subject
+    shards per cell from ``Mesh.put_db`` (keys int64, offsets and lengths
+    int64; bucket may be None), query inputs from ``Mesh.put_q``, matrices
+    from ``Mesh.put_all``.  It returns each cell's pass-B result (the fused
     seeder's dict: hit arrays, ``packed``, ``stats_vec``), a list in cell
     order.  ``stats``, a StatsHolder, records the passes' walk span and
-    host syncs (see search/seeding.py).
+    host syncs (see search/seeding.py) and the span ``time_mesh_reduce``;
+    ``card_events``, a list, takes the CUDA events around each cell's
+    passes (stats.card_clock).
 
     Id conventions (as the JAX package's): slot_frame holds BATCH-GLOBAL
     query-frame ids and is rebased to the cell's q block here, so emitted
@@ -522,7 +554,7 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
 
     def step(keys, pos, frame, offsets, lengths, trans, red, red_q, qlens,
              slot_frame, slot_begin, slot_rem, hits0, trans_q, subst_fwd,
-             subst_rev, bucket, stats=None):
+             subst_rev, bucket, stats=None, card_events=None):
         outs = []
         for i in range(mesh.shape[0]):
             cells = mesh.row(i)
@@ -537,14 +569,14 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
                             trans[c], trans_q[c], red[c], subst_fwd[c],
                             subst_rev[c])
                 bkt[c] = bucket[c] if bucket is not None else None
-            if pigeon:
-                parts = [passes["pass_a"](keys[c], *slots[c], hits0[c],
-                                          *index[c], bkt[c], stats=stats)
-                         for c in cells]
-            else:
-                parts = [passes["pass_a"](keys[c], *slots[c], bkt[c],
-                                          stats=stats) for c in cells]
-            acc = mesh.reduce_db(parts)
+            parts = []
+            for c in cells:
+                extra = (hits0[c], *index[c]) if pigeon else ()
+                with card_clock(card_events, keys[c].device):
+                    parts.append(passes["pass_a"](
+                        keys[c], *slots[c], *extra, bkt[c], stats=stats))
+            with timed(stats, "time_mesh_reduce"):
+                acc = mesh.reduce_db(parts)
             del parts
             c0 = cells[0]
             ext_over = None
@@ -561,9 +593,10 @@ def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):
             del acc
             for c in cells:
                 dev = keys[c].device
-                res = passes["pass_b"](keys[c], *slots[c], hits0[c],
-                                       *index[c], *(f.to(dev) for f in forced),
-                                       bkt[c], stats=stats)
+                with card_clock(card_events, dev):
+                    res = passes["pass_b"](
+                        keys[c], *slots[c], hits0[c], *index[c],
+                        *(f.to(dev) for f in forced), bkt[c], stats=stats)
                 if ext_over is not None:
                     eo = ext_over.to(dev)
                     res["stats"]["cursors_overflow"] = torch.maximum(

@@ -55,7 +55,7 @@ from ..index import artifact
 from ..io import fasta
 from ..ops import searchsorted as ss, sw_band
 from ..output import blast_report, blast_tab, sam_bam
-from ..stats import StatsHolder, span
+from ..stats import StatsHolder, span, timed
 from . import extend, records, seeding
 
 
@@ -118,8 +118,10 @@ class _SeedDispatch:
     stream_outs: list | None = None      # db-stream per-shard pass-B outputs
     mesh_outs: list | None = None        # device mesh per-cell outputs
     # CUDA events around each seeder call not yet read (collect_batch
-    # reads them after its stats pull, which has waited for them)
+    # reads them after its stats pull, which has waited for them), and
+    # under the mesh those around each cell's passes (stats.card_clock)
     events: list = dataclasses.field(default_factory=list)
+    card_events: list = dataclasses.field(default_factory=list)
 
 
 class SearchContext:
@@ -340,21 +342,58 @@ class SearchContext:
     def _check_device_memory(self):
         """Pre-flight device-memory estimate (device-side analogue of
         checkRAM, search_algo.hpp:126-155): warn when the resident index
-        -- under --db-stream N or --db-shards N, one shard of it -- likely
-        exceeds the card's memory."""
-        if self.device.type != "cuda":
-            return
+        -- under --db-stream N one shard of it, under the mesh the shards
+        of each card's cells -- likely exceeds that card's memory."""
+        for dev, need in self.device_memory_needs().items():
+            if dev.type != "cuda":
+                continue
+            _, total = torch.cuda.mem_get_info(dev)
+            if need > 0.9 * total and self.opt.verbosity >= 1:
+                print(f"WARNING: the device-resident index needs "
+                      f"~{need >> 20} MiB of ~{total >> 20} MiB of {dev}'s "
+                      "memory; consider --db-stream N or more "
+                      "--db-shards.")
+
+    def device_memory_needs(self) -> dict:
+        """The index bytes each device will hold: {device: bytes}.  One
+        device: int64 keys, int32 pos and frame, the int8 subject concat
+        (one shard of them under --db-stream).  The mesh: on each distinct
+        device, the db shards of its cells, each padded as ``Mesh.put_db``
+        places it -- to the largest shard's k-mer rows, residues (int8
+        trans and red) and frames (int64 offsets and lengths), with its
+        prefix table -- exact for an artifact built with as many shards,
+        the rows of each shard estimated by its residues otherwise."""
         idx = self.idx
         kms = [idx.kmer] if idx.kmer is not None else idx.kmer_shards
-        # int64 keys, int32 pos and frame, the int8 subject concat
-        need = (sum(k.keys.size * 8 + k.pos.size * 8 for k in kms)
-                + len(idx.trans_concat)) // max(self.db_shards,
-                                                self.db_stream)
-        _, total = torch.cuda.mem_get_info(self.device)
-        if need > 0.9 * total and self.opt.verbosity >= 1:
-            print(f"WARNING: the device-resident index needs ~{need >> 20} "
-                  f"MiB of ~{total >> 20} MiB device memory; consider "
-                  "--db-stream N.")
+        if self.mesh is None:
+            need = (sum(k.keys.size * 8 + k.pos.size * 8 for k in kms)
+                    + len(idx.trans_concat)) // self.db_stream
+            return {self.device: need}
+        D = self.db_shards
+        offs = np.asarray(idx.trans_offsets, dtype=np.int64)
+        rows = None
+        if idx.kmer_shards and len(idx.kmer_shards) == D:
+            fb = idx.shard_frame_bounds()
+            rows = np.array([k.num_positions for k in idx.kmer_shards])
+        else:
+            fps = max(1, self.sbj_num_frames)
+            n_subj = (len(offs) - 1) // fps
+            fb = np.r_[0, np.cumsum([len(g) for g in np.array_split(
+                np.arange(n_subj), D)])] * fps
+        residues = offs[fb[1:]] - offs[fb[:-1]]
+        if rows is None:
+            n_rows = sum(k.num_positions for k in kms)
+            rows = -(-n_rows * residues // max(int(residues.sum()), 1))
+        words = idx.kmer_meta.words
+        shard = (max(int(rows.max()), 1) * (8 * words + 8)
+                 + max(int(residues.max()), 1) * 2
+                 + max(int(np.diff(fb).max()), 1) * 16)
+        if self.bucket_m:
+            shard += ((1 << (idx.kmer_meta.bits * self.bucket_m)) + 1) * 8
+        held: dict = {}
+        for c, dev in enumerate(self.mesh.devices):
+            held.setdefault(dev, set()).add(c % D)
+        return {dev: shard * len(js) for dev, js in held.items()}
 
     def _stream_setup(self):
         """--db-stream N: the index as N host-resident shards, split the
@@ -445,6 +484,18 @@ class SearchContext:
             idx.trans_offsets[:-1].astype(np.int64))
         self.d_sbj_lens = torch.from_numpy(
             idx.trans_lengths.astype(np.int64))
+        # the set-up ends with every card's uploads done, so that a clock
+        # around it (time_load, the benchmark's index_load_s) holds them
+        for d in self.mesh_cards():
+            torch.cuda.synchronize(d)
+
+    def mesh_cards(self) -> list:
+        """The distinct CUDA devices of the mesh's cells, in cell order
+        (none without the mesh or on the CPU)."""
+        if self.mesh is None:
+            return []
+        return list(dict.fromkeys(d for d in self.mesh.devices
+                                  if d.type == "cuda"))
 
     def _reduced_concat(self) -> np.ndarray:
         """Host reduced-alphabet subject concat (redView over the subject,
@@ -564,6 +615,7 @@ class SearchContext:
               for r in set(rev.tolist())}
         names = ("qry_id", "qry_start", "qry_len", "subj_id", "d_lo",
                  "d_row")
+        card_events = [] if stats is not None else None
         pending = []          # launch every class first, then sync once
         for (qbk, dbk, r), idxs in sorted(
                 extend.bucket_groups(qlen, d_row, rev).items()):
@@ -595,10 +647,15 @@ class SearchContext:
                                                  ge)(
                 trans_q, self.d_sh["trans"], self.d_sh["offsets"],
                 self.d_sh["lengths"], *(mesh.put_cells(arrs[k])
-                                        for k in names), e8[r])
+                                        for k in names), e8[r],
+                card_events=card_events)
             pending.append((idxs, cell, p, out))
-        for idxs, cell, p, out in pending:
-            scores[idxs] = np.stack([o.cpu().numpy() for o in out])[cell, p]
+        with timed(stats, "time_mesh_gather"):
+            for idxs, cell, p, out in pending:
+                scores[idxs] = np.stack([o.cpu().numpy()
+                                         for o in out])[cell, p]
+        if card_events:
+            stats.add_card_seconds(card_events)
         return scores
 
     # -----------------------------------------------------------------
@@ -696,8 +753,10 @@ class SearchContext:
 
     def _seed_device_call(self, sd: _SeedDispatch, stats: StatsHolder):
         """Run the fused seeding for ``sd`` at its current budget scale; on
-        the card between two timing events on the current stream (of the
-        mesh's first cell), which collect_batch reads."""
+        the card between two timing events on the current stream of the
+        batch's device (under the mesh the first cell's card alone: each
+        cell's passes have events of their own on their card), which
+        collect_batch reads."""
         events = None
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
@@ -747,7 +806,8 @@ class SearchContext:
                 m.put_q(sd.slot_frame), m.put_q(sd.slot_begin),
                 m.put_q(sd.slot_rem), m.put_q(np.zeros(sd.Q, np.int64)),
                 m.put_q(sd.d_trans_q), m.put_all(self.d_sub_fwd),
-                m.put_all(self.d_sub_rev), self.d_sh["bucket"], stats=stats)
+                m.put_all(self.d_sub_rev), self.d_sh["bucket"], stats=stats,
+                card_events=sd.card_events)
             sd.mesh_outs = [{k: r[k] for k in ("packed", "stats_vec")}
                             for r in outs]
 
@@ -846,7 +906,9 @@ class SearchContext:
             parts = sd.stream_outs if self.db_stream > 1 else sd.mesh_outs
             if parts is not None:
                 # per shard (streaming) or per cell (mesh)
-                with stats.timed("time_locate"):
+                with stats.timed("time_locate"), timed(
+                        stats if self.mesh is not None else None,
+                        "time_mesh_gather"):
                     svs = [r["stats_vec"].cpu().numpy() for r in parts]
                 sv = np.stack(svs).astype(np.int64).sum(axis=0)
             else:
@@ -858,6 +920,7 @@ class SearchContext:
             for start, end in sd.events:
                 stats.dev_seed_s += start.elapsed_time(end) / 1e3
             sd.events.clear()
+            stats.add_card_seconds(sd.card_events)
             st2 = dict(hits_located=int(sv[0]), hits_overflow=int(sv[1]),
                        failed_prescore=int(sv[2]),
                        cursors_overflow=int(sv[3]))
@@ -896,7 +959,9 @@ class SearchContext:
                 s_base = np.tile(self.shard_base, Qm)
                 q_base = np.repeat(np.arange(Qm) * (len(trans) // Qm), Dm)
             rows = []
-            with stats.timed("time_locate"):
+            with stats.timed("time_locate"), timed(
+                    stats if self.mesh is not None else None,
+                    "time_mesh_gather"):
                 for i, r in enumerate(parts):
                     n_i = int(svs[i][4])
                     if n_i == 0:
@@ -1309,4 +1374,8 @@ def _run_search(opt: opt_mod.LambdaOptions, device, devices) -> StatsHolder:
     progress.finish()
     writer.write_footer()
     stats.read_device_counters()
+    cards = ctx.mesh_cards()
+    if cards:
+        stats.card_mem_peak_bytes = max(
+            torch.cuda.max_memory_allocated(d) for d in cards)
     return stats

@@ -8,9 +8,10 @@ The port's copy of the JAX package's module, with the spans of a search
 call after its fields: ten top-level buckets (``time_load``,
 ``time_read``, ``time_seed_prep``, the six phases ``time_seed`` ...
 ``time_write`` and ``time_records``) that never overlap, nested spans
-inside them, seeding's device clock and its host syncs.  While a
-torch profiler runs, every bucket is also a ``record_function`` span
-on the profiler's clock."""
+inside them, seeding's device clock and its host syncs, and under the
+device mesh each card's device clock and memory peak.  While a torch
+profiler runs, every bucket is also a ``record_function`` span on the
+profiler's clock."""
 
 from __future__ import annotations
 
@@ -27,6 +28,30 @@ def span(name: str):
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+def timed(stats, bucket: str):
+    """``stats.timed(bucket)``, or nothing where ``stats`` is None."""
+    return contextlib.nullcontext() if stats is None else stats.timed(bucket)
+
+
+@contextlib.contextmanager
+def card_clock(events: list | None, dev: torch.device):
+    """CUDA events on ``dev``'s current stream before and after the
+    block's work, appended to ``events`` as (device, start, end) for
+    :meth:`StatsHolder.add_card_seconds`; nothing where ``events`` is None
+    or ``dev`` is not a card."""
+    if events is None or dev.type != "cuda":
+        yield
+        return
+    stream = torch.cuda.current_stream(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    start.record(stream)
+    try:
+        yield
+    finally:
+        end.record(stream)
+        events.append((dev, start, end))
 
 
 @dataclasses.dataclass
@@ -83,7 +108,9 @@ class StatsHolder:
     time_stream_upload: float = 0.0
     time_phase2: float = 0.0
     # seeding's device-timeline seconds (CUDA events around each seeder
-    # call, retries included; 0 on the CPU) and its device-to-host reads
+    # call, retries included, on the stream of the device the batch lives
+    # on: under the mesh the first cell's card alone; 0 on the CPU) and
+    # its device-to-host reads
     dev_seed_s: float = 0.0
     seed_syncs: int = 0
     # seeding's batched range searches (ops/searchsorted.py): the rows
@@ -92,11 +119,28 @@ class StatsHolder:
     # (see skipped_counter) and read once the call's work is done
     seed_search_rows: int = 0
     seed_search_skipped: int = 0
+    # the device mesh (--db-shards/--q-shards), nested: pass A's per-cell
+    # counts reaching each q row's first card and summed there (in
+    # time_seed); each cell's stats vector, packed rows and pass-1 scores
+    # moved to the host and rebased to global ids (in time_locate and
+    # time_extend)
+    time_mesh_reduce: float = 0.0
+    time_mesh_gather: float = 0.0
+    # the mesh's cards' own device clocks: CUDA events on each card's
+    # stream around its seeding passes and its pass-1 work (window gather
+    # and K1), summed per card over a call; the sum over the cards and the
+    # largest card's, added up over calls.  The largest
+    # torch.cuda.max_memory_allocated of the mesh's cards at a call's end.
+    # All 0 without the mesh and on the CPU.
+    dev_card_sum_s: float = 0.0
+    dev_card_max_s: float = 0.0
+    card_mem_peak_bytes: int = 0
 
     def __iadd__(self, o: "StatsHolder"):
         for f in dataclasses.fields(self):
-            if f.name == "seed_len_max":
-                self.seed_len_max = max(self.seed_len_max, o.seed_len_max)
+            if f.name in ("seed_len_max", "card_mem_peak_bytes"):
+                setattr(self, f.name, max(getattr(self, f.name),
+                                          getattr(o, f.name)))
             else:
                 setattr(self, f.name,
                         getattr(self, f.name) + getattr(o, f.name))
@@ -115,9 +159,26 @@ class StatsHolder:
 
     def read_device_counters(self) -> None:
         """Add the device counters into ``seed_search_skipped``: one read
-        per device, made when the call's work is done."""
+        per device, made when the call's work is done; fold the call's
+        per-card clocks (:meth:`add_card_seconds`) into
+        ``dev_card_sum_s`` and ``dev_card_max_s``."""
         for c in self.__dict__.pop("_device_counters", {}).values():
             self.seed_search_skipped += int(c)
+        clocks = self.__dict__.pop("_card_s", {})
+        if clocks:
+            self.dev_card_sum_s += sum(clocks.values())
+            self.dev_card_max_s += max(clocks.values())
+
+    def add_card_seconds(self, events: list) -> None:
+        """Add the seconds between each (device, start, end) pair of
+        :func:`card_clock` to that card's clock of this call, and empty
+        ``events``.  Every event must be complete: read them after a pull
+        that waited for the card's stream, which adds no sync."""
+        clocks = self.__dict__.setdefault("_card_s", {})
+        for dev, start, end in events:
+            clocks[dev] = clocks.get(dev, 0.0) \
+                + start.elapsed_time(end) / 1e3
+        events.clear()
 
     def add_seed_lens(self, sl) -> None:
         """Accumulate located-seed lengths (any integer array-like)."""
@@ -201,6 +262,12 @@ class StatsHolder:
             if self.seed_search_rows:
                 print(f"   [seed search: rows {self.seed_search_rows}, "
                       f"skipped {self.seed_search_skipped}]")
+            if self.dev_card_sum_s or self.time_mesh_gather:
+                print(f"   [mesh: reduce {self.time_mesh_reduce:.2f} s, "
+                      f"gather {self.time_mesh_gather:.2f} s, cards "
+                      f"{self.dev_card_sum_s:.2f} s (largest "
+                      f"{self.dev_card_max_s:.2f} s), memory peak "
+                      f"{self.card_mem_peak_bytes / 1e9:.2f} GB]")
         if options.verbosity >= 1:
             print(f"Number of total hits:                           {self.hits_final}")
             print(f"Number of Query-Subject pairs:                  {self.pairs}")

@@ -519,3 +519,65 @@ def test_searchsorted_refuses_wrong_dtype_or_device(card):
         ss.count_curves(k, t, lo, lo, nxt.to(torch.int8), plan)
     with pytest.raises(ValueError):
         ss.count_curves(k, t, lo, lo, nxt, plan.cpu())
+
+
+@pytest.mark.cuda
+def test_db_shards4_on_four_cards_is_byte_equal_to_one_card(card, tmp_path):
+    """``searchp --db-shards 4`` with shard k resident on cuda:k, through
+    run_search on one resident context, writes the bytes of the one-card
+    search of the same index (a database of families from the
+    benchmark's generator, built as four shards; 1,024 proteins in two
+    batches), every hand-written launch running on its own card; the
+    card clocks and the fullest card's memory are recorded."""
+    import dataclasses
+
+    from benchmark.harness import generate
+    from lambda_tpu_torch import cli
+    from lambda_tpu_torch.search import pipeline
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    p = dict(residues=2_000_000, length_mean=360, length_sigma=0.7,
+             length_min=30, length_max=4000, size_exponent=2.0, size_max=300,
+             divergence_min=0.05, divergence_max=0.3,
+             indels_per_residue=0.005, indel_max=3, spare_families=0.25,
+             absent_families=2000)
+    db = generate.make_database(2 ** 35 + 1, p)
+    db.write_fasta(tmp_path / "db.fa")
+    assert cli.main(["mkindexp", "--shards", "4", "-d",
+                     str(tmp_path / "db.fa"), "-i", str(tmp_path / "db.lit"),
+                     "-v", "0"]) == 0
+    qs = generate.make_queries(generate.rng_for(2 ** 35 + 1, 2), db,
+                               dict(kind="proteins", homolog_share=0.7),
+                               1024)
+    generate.write_queries(tmp_path / "q.fa", qs, 0)
+    out, st = {}, {}
+    for shards in (1, 4):
+        opt = cli.search_options("searchp", [
+            "-q", str(tmp_path / "q.fa"), "-i", str(tmp_path / "db.lit"),
+            "-o", str(tmp_path / f"{shards}.m8"), "-v", "0"])[0]
+        opt = dataclasses.replace(opt, db_shards=shards)
+        ctx = pipeline.SearchContext(opt, "cuda")
+        cls = pipeline.SearchContext
+        pipeline.SearchContext = lambda *a, **kw: ctx
+        try:
+            before = (ss.launches, sw_band.launches)
+            st[shards] = pipeline.run_search(opt, device="cuda")
+            launched = (ss.launches - before[0], sw_band.launches - before[1])
+        finally:
+            pipeline.SearchContext = cls
+        out[shards] = (tmp_path / f"{shards}.m8").read_bytes()
+        if shards == 4:
+            assert [str(d) for d in ctx.mesh_cards()] == [
+                f"cuda:{k}" for k in range(4)]
+            assert [str(t.device) for t in ctx.d_sh["keys"]] == [
+                f"cuda:{k}" for k in range(4)]
+        del ctx
+    assert st[1].hits_final > 0 and all(n > 0 for n in launched)
+    assert out[4] == out[1]
+    four = st[4]
+    assert 0 < four.dev_card_max_s < four.dev_card_sum_s
+    assert 0 < four.time_mesh_reduce < four.time_seed
+    assert 0 < four.time_mesh_gather
+    assert four.card_mem_peak_bytes >= torch.cuda.max_memory_allocated(1) > 0
+    assert st[1].dev_card_sum_s == st[1].card_mem_peak_bytes == 0

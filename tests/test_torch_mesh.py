@@ -46,7 +46,7 @@ def grid(q: int, db: int) -> tmesh.Mesh:
 def test_mesh_places_once_per_device_and_sums_rows():
     """put_db shares one tensor among the cells of a db column that name
     the same device; put_q hands each q row its block; reduce_db is the
-    sum over a row's cells."""
+    sum over a row's cells, which it takes over."""
     m = grid(2, 3)
     x = np.arange(3 * 4, dtype=np.int32).reshape(3, 4)
     cells = m.put_db(x)
@@ -57,7 +57,8 @@ def test_mesh_places_once_per_device_and_sums_rows():
     assert torch.equal(q[4], torch.as_tensor([[4, 5], [6, 7]]))
     keys = m.put_db(np.full((3, 2, 4), 0xFFFFFFFF, np.uint32))
     assert keys[0].dtype == torch.int64 and int(keys[0].max()) == 0xFFFFFFFF
-    assert int(m.reduce_db([cells[c] for c in m.row(1)]).sum()) == x.sum()
+    parts = [cells[c].clone() for c in m.row(1)]    # handed over
+    assert int(m.reduce_db(parts).sum()) == x.sum() and parts == []
     with pytest.raises(ValueError):
         tmesh.Mesh([CPU] * 3, 2, 2)
 
