@@ -6,14 +6,17 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device   -- the card's name and power limit (nvidia-smi); no CUDA: exit 1
-2. build    -- build K1-K4, S1 and the rate probe (nvcc, sm_90a, one nvcc per
-               source) and the host C++ helpers (g++) in parallel from the
-               sources in the checkout, with each kernel's ptxas report
-               and K3's per instantiation (registers, stack and spill
-               bytes; local memory on K3's register path fails the run)
+2. build    -- build K1-K4, S1, S2 and the rate probe (nvcc, sm_90a, one
+               nvcc per source) and the host C++ helpers (g++) in parallel
+               from the sources in the checkout, with each kernel's ptxas
+               report and K3's per instantiation (registers, stack and
+               spill bytes; local memory on K3's register path fails the
+               run)
    rates    -- the card's int32 instruction rates (csrc/int_rate.cu):
                add, max, the two DPX forms and the band cell as 7
-               DPX-folded instructions; the per-cell time of the bounds
+               DPX-folded instructions; the per-cell time of the bounds;
+               the latency of one warp sum of an int64 and an add (S2's
+               bound)
 3. k1       -- K1 against its plain PyTorch version on the card, exact
                equality, at D in {7, 39, 127, 1023} x query buckets
                {64, 256, 1024} with BLOSUM62 ranks and padding rows, at
@@ -90,6 +93,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
                dependent key loads at the card's random-load latency
                (one-row searches of the whole index, each on a new key)
                against the bytes it must move at 3.35 TB/s
+   scale_slot_walk -- S2 (csrc/slot_walk.cu) on the main path: its
+               launches counted from 0 over the scale search, held
+               exactly against its plain version on the inputs of the
+               first walk of each seeding phase of that search and of
+               the BLASTX search below; per call the slots, queries,
+               rows and steps, kernel ms and device ms, plain ms and the
+               bound: the larger of the bytes read once at 3.35 TB/s and
+               the slots times one warp sum and add (the rates phase)
 11. scale_blastx -- BLASTX at full width on the same resident index
                (reloaded once the BLASTP context is freed): 1,024 DNA
                reads of 300 nt (70 % coding for 100-aa fragments of
@@ -136,7 +147,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
                per cell, K1 held, shard set-up seconds, device-memory
                peak
 
-then the kernels line (K1-K4, S1) and, last, {"ok": true, "device": {...}}.
+then the kernels line (K1-K4, S1, S2) and, last, {"ok": true, "device": {...}}.
 Kernel ``ms`` is the call as issued (CUDA events around the wrapper's
 call, the measure of every record of this script); ``device_ms`` beside
 it is the device's work alone (the stream held busy by a spin while the
@@ -184,7 +195,7 @@ K2_OPS_PER_CELL = 22
 # bounds take whichever of the two the card runs faster
 DPX_CELL_INSTR = 7
 KERNELS = ("sw_band", "sw_band_dirs", "sw_band_sub", "sw_rect",
-           "searchsorted")
+           "searchsorted", "slot_walk")
 # the rate probe's modes (csrc/int_rate.cu): name, instructions per thread
 # and iteration
 RATE_MODES = (("add", 8), ("max", 8), ("viaddmax", 8), ("viaddmax_relu", 8),
@@ -328,7 +339,8 @@ def phase_rates(dev_info) -> None:
     int32 rate and 7 DPX-folded instructions at the measured cell rate;
     K2's code and end-cell key add 11 operations at the int32 rate
     (compares and selects have no DPX form).  Sets dev_info's
-    ``cell_s`` and ``k2_cell_s``."""
+    ``cell_s`` and ``k2_cell_s``, and ``warp_sum_ns``: one warp's chain
+    of int64 warp sums and adds (mode 5), per link, S2's time a slot."""
     from lambda_tpu_torch.ops import _build
 
     fn = _build.load("int_rate").int_rate_launch
@@ -348,6 +360,14 @@ def phase_rates(dev_info) -> None:
                 raise RuntimeError(f"int_rate mode {mode}: cudaError {err}")
         ms[name] = time_ms(launch, 5)
         rates[name] = blocks * threads * iters * per_iter / (ms[name] * 1e-3)
+
+    def chain():
+        err = fn(5, 1, 32, iters, seeds.data_ptr(), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"int_rate mode 5: cudaError {err}")
+    ms["warp_sum_chain"] = time_ms(chain, 5, device=True)
+    dev_info["warp_sum_ns"] = ms["warp_sum_chain"] * 1e6 / iters
     plain_cell_s = OPS_PER_CELL / dev_info["int32_rate"]
     dpx_cell_s = DPX_CELL_INSTR / rates["dpx_cell"]
     dev_info["cell_s"] = min(plain_cell_s, dpx_cell_s)
@@ -360,7 +380,8 @@ def phase_rates(dev_info) -> None:
          plain_cell_ns=plain_cell_s * 1e9, dpx_cell_ns=dpx_cell_s * 1e9,
          cell_ns=dev_info["cell_s"] * 1e9,
          k2_cell_ns=dev_info["k2_cell_s"] * 1e9,
-         cell_by="dpx" if dpx_cell_s < plain_cell_s else "plain int32")
+         cell_by="dpx" if dpx_cell_s < plain_cell_s else "plain int32",
+         warp_sum_ns=dev_info["warp_sum_ns"])
 
 
 def timed(fn):
@@ -1787,10 +1808,10 @@ def main_search(opt, devices=None, ss_inputs: bool = False) -> dict:
     hooks of this script only: the resident bytes and the time at which
     SearchContext is ready (index read and uploaded), the context itself
     (for the reruns), and the inputs of the first three K1 launches.
-    Its K1 and S1 launches are counted from 0.  ``ss_inputs``: also the
-    inputs of S1's first calls of each seeding phase
-    (:func:`searchsorted_inputs`)."""
-    from lambda_tpu_torch.ops import searchsorted as ss, sw_band
+    Its K1, S1 and S2 launches are counted from 0.  ``ss_inputs``: also
+    the inputs of S1's and S2's first calls of each seeding phase
+    (:func:`seeding_inputs`)."""
+    from lambda_tpu_torch.ops import searchsorted as ss, slot_walk, sw_band
     from lambda_tpu_torch.search import pipeline
 
     rec: dict = {}
@@ -1806,10 +1827,10 @@ def main_search(opt, devices=None, ss_inputs: bool = False) -> dict:
     pipeline.SearchContext.__init__ = init_hook
     try:
         with capture("_sw_band_score_cuda", first(3)) as k1_in, \
-                searchsorted_inputs(opt, ss_inputs) as ss_in:
+                seeding_inputs(opt, ss_inputs) as ss_in:
             torch.cuda.reset_peak_memory_stats()
             reset_band_launches()                  # the main path starts
-            ss.launches = 0
+            ss.launches = slot_walk.launches = 0
             t0 = time.perf_counter()
             rec["stats"] = pipeline.run_search(opt, device="cuda",
                                                devices=devices)
@@ -1817,6 +1838,7 @@ def main_search(opt, devices=None, ss_inputs: bool = False) -> dict:
             t1 = time.perf_counter()
             rec["launches"] = sw_band.launches     # ... and ends
             rec["ss_launches"] = ss.launches
+            rec["sw_launches"] = slot_walk.launches
     finally:
         pipeline.SearchContext.__init__ = init
     rec.update(k1_inputs=k1_in, ss_inputs=ss_in, load_s=rec["ready"] - t0,
@@ -1825,13 +1847,14 @@ def main_search(opt, devices=None, ss_inputs: bool = False) -> dict:
 
 
 @contextlib.contextmanager
-def searchsorted_inputs(opt, keep: bool):
+def seeding_inputs(opt, keep: bool):
     """With ``keep``, the inputs of S1's first range search and first
-    count curves in each seeding phase of a search with ``opt`` (phase 2:
-    a dispatch with ``opt.search_opts`` in an iterative search), as
-    {(entry, phase): args}: every tensor cloned but the resident keys,
-    which are held by reference.  The calls themselves run."""
-    from lambda_tpu_torch.ops import searchsorted as ss
+    count curves, and of S2's first walk, in each seeding phase of a
+    search with ``opt`` (phase 2: a dispatch with ``opt.search_opts`` in
+    an iterative search), as {(entry, phase): args}: every tensor cloned
+    but the resident keys, which are held by reference.  The calls
+    themselves run."""
+    from lambda_tpu_torch.ops import searchsorted as ss, slot_walk
     from lambda_tpu_torch.search import pipeline
 
     captured: dict = {}
@@ -1840,8 +1863,10 @@ def searchsorted_inputs(opt, keep: bool):
         return
     cls = pipeline.SearchContext
     dispatch = cls.dispatch_seeding
-    wrappers = {"range": "_search_range_cuda", "curves": "_count_curves_cuda"}
-    launch = {e: getattr(ss, w) for e, w in wrappers.items()}
+    wrappers = {"range": (ss, "_search_range_cuda"),
+                "curves": (ss, "_count_curves_cuda"),
+                "walk": (slot_walk, "_slot_walk_cuda")}
+    launch = {e: getattr(m, w) for e, (m, w) in wrappers.items()}
     phase = [1]
 
     def dispatch_hook(self, qry_seqs, so, stats):
@@ -1858,14 +1883,14 @@ def searchsorted_inputs(opt, keep: bool):
         return call
 
     cls.dispatch_seeding = dispatch_hook
-    for e, w in wrappers.items():
-        setattr(ss, w, hook(e))
+    for e, (m, w) in wrappers.items():
+        setattr(m, w, hook(e))
     try:
         yield captured
     finally:
         cls.dispatch_seeding = dispatch
-        for e, w in wrappers.items():
-            setattr(ss, w, launch[e])
+        for e, (m, w) in wrappers.items():
+            setattr(m, w, launch[e])
 
 
 def device_call_ms(fn) -> float:
@@ -2044,6 +2069,8 @@ def phase_scale_searchsorted(search: str, rec, dev_info) -> list:
                              "in phase 1")
     cmp = []
     for (entry, ph), args in sorted(rec["ss_inputs"].items()):
+        if entry == "walk":
+            continue
         c = dict(ss_compare(entry, args, dev_info), seeding_phase=ph)
         emit(phase="scale_searchsorted", search=search,
              launches=rec["ss_launches"], **c)
@@ -2051,6 +2078,26 @@ def phase_scale_searchsorted(search: str, rec, dev_info) -> list:
     if not all(c["exact_equal"] for c in cmp):
         raise SystemExit(f"S1 disagrees with its plain version on the "
                          f"{search} search's inputs")
+    return cmp
+
+
+def phase_scale_slot_walk(search: str, rec, dev_info) -> list:
+    """S2 against its plain version on the walks ``rec`` (main_search
+    with ``ss_inputs``) captured, the first of each seeding phase: one
+    line per call; fails the run on any difference, or if the search
+    launched S2 no time or walked nothing in phase 1."""
+    if rec["sw_launches"] <= 0:
+        raise SystemExit(f"the {search} search launched S2 no time")
+    if ("walk", 1) not in rec["ss_inputs"]:
+        raise SystemExit(f"the {search} search made no S2 call in phase 1")
+    cmp = []
+    for (entry, ph), args in sorted(rec["ss_inputs"].items()):
+        if entry != "walk":
+            continue
+        c = dict(slot_walk_cost(args, dev_info), seeding_phase=ph)
+        emit(phase="scale_slot_walk", search=search,
+             launches=rec["sw_launches"], **c)
+        cmp.append(c)
     return cmp
 
 
@@ -2085,6 +2132,7 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
     dev_info["ss_load_ns"] = dev_info["ss_latency"]["load_ns"]
     emit(phase="scale_searchsorted_latency", **dev_info["ss_latency"])
     ss_cmp = phase_scale_searchsorted("blastp", rec, dev_info)
+    sw_cmp = phase_scale_slot_walk("blastp", rec, dev_info)
     del keys
     rec.pop("ss_inputs")
 
@@ -2150,7 +2198,7 @@ def phase_scale(tmp: Path, dev_info, n_subj=250_000, length=400,
                          "inputs")
     return dict(launches=launches, cmp=cmp, reruns=reruns, peak=search_peak,
                 trace_launches=trace_launches, ss_launches=rec["ss_launches"],
-                ss_cmp=ss_cmp)
+                ss_cmp=ss_cmp, sw_launches=rec["sw_launches"], sw_cmp=sw_cmp)
 
 
 def homolog_share(m8: Path, n_q: int):
@@ -2245,7 +2293,8 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     its plain version on the first three launches' inputs."""
     import gc
 
-    from lambda_tpu_torch.search import pipeline, seeding
+    from lambda_tpu_torch.ops import slot_walk
+    from lambda_tpu_torch.search import pipeline
 
     delta = kw.get("delta") or 1
 
@@ -2259,7 +2308,7 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     gc.collect()                       # the previous context is gone
     torch.cuda.empty_cache()
     with counting(pipeline.SearchContext, "_next_scale") as retries, \
-            capture("_slot_walk", phase2_walk, seeding) as walk_in, \
+            capture("_slot_walk_cuda", phase2_walk, slot_walk) as walk_in, \
             cell_calls(pmesh.ShardedBandScorer) as per_cell, \
             timing(pipeline.SearchContext, "_mesh_setup") as setup_s:
         rec = main_search(scale_opt(tmp, out, **kw), devices)
@@ -2274,7 +2323,7 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
              phase_s={k: round(getattr(stats, f"time_{k}"), 3)
                       for k in PHASE_KEYS},
              k1_launches=rec["launches"], ss_launches=rec["ss_launches"],
-             peak_device_bytes=peak,
+             sw_launches=rec["sw_launches"], peak_device_bytes=peak,
              hits_located=stats.hits_after_seeding,
              hits_overflow=stats.hits_overflow,
              cursors_overflow=stats.cursors_overflow,
@@ -2288,7 +2337,7 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
                           ("B", "N", "D", "exact_equal", "ms", "device_ms",
                            "plain_ms", "bound_ms")} for c in cmp])
     if walk_in:
-        r["slot_walk"] = slot_walk_cost(seeding._slot_walk, walk_in[0])
+        r["slot_walk"] = slot_walk_cost(walk_in[0], dev_info)
     if ctx.db_stream > 1:
         # the shard uploads of every pass A and pass B, from the stats
         r["upload_s"] = round(stats.time_stream_upload, 4)
@@ -2308,6 +2357,8 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     if not cmp or not all(c["exact_equal"] for c in cmp):
         raise SystemExit(f"K1 disagrees with its plain version on the "
                          f"scale search {kw}")
+    if rec["sw_launches"] <= 0 or not walk_in:
+        raise SystemExit(f"the scale search {kw} launched S2 no time")
     return dict(r, cmp=cmp)
 
 
@@ -2350,20 +2401,52 @@ def cell_calls(cls):
         cls.cell = meth
 
 
-def slot_walk_cost(walk, args) -> dict:
-    """The cost of one call of search/seeding.py:_slot_walk on the inputs
-    of the search's first call: slots and rows walked, ms as called
-    (CUDA events, median of 5) and the CUDA kernels it launches
-    (torch.profiler)."""
+def slot_walk_cost(args, dev_info) -> dict:
+    """S2 (ops/slot_walk.py:_slot_walk_cuda) against its plain version
+    on one main-path call's inputs ``args``: exact equality of every
+    row's elongation (a difference fails the run), kernel ms and device
+    ms, the plain version's ms on its comparison call and its launches
+    (torch.profiler), and the bound: the larger of the bytes read once
+    (curves, the rows' slot, query, begin, frame length and remaining
+    estimate, base and hits0, the segment bounds written and read, L
+    written) at 3.35 TB/s and the slots times one warp sum and add
+    (``dev_info["warp_sum_ns"]``)."""
+    from lambda_tpu_torch.ops import slot_walk
+
+    saved = slot_walk.launches
+    curve, base = args[1], args[7]
+    n, E1 = curve.shape
+    T, Q = base.shape
+
+    def launch():
+        return slot_walk._slot_walk_cuda(*args)
+
+    def plain():
+        return slot_walk.slot_walk_torch(*args)
+
+    out_k = launch()
+    out_p, p_ms = timed(plain)
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        walk(*args)
+        plain()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return dict(slots=int(args[7].shape[0]), rows=int(args[1].shape[0]),
-                ms=time_ms(lambda: walk(*args), 5),
-                kernel_launches=sum(e.count for e in kern))
+    plain_launches = sum(e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    err = int((out_k - out_p).abs().max()) if n else 0
+    kt = kernel_times(launch, 5)
+    slot_walk.launches = saved         # comparison launches do not count
+    nbytes = 8 * (n * E1 + 6 * n + 3 * T * Q + Q + 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_chain = T * dev_info["warp_sum_ns"] * 1e-6
+    c = dict(slots=T, queries=Q, rows=n, steps=E1 - 1, max_abs_err=err,
+             exact_equal=err == 0, **kt, plain_ms=p_ms,
+             plain_launches=plain_launches, bytes=nbytes, bytes_ms=t_bytes,
+             chain_ms=t_chain, bound_ms=max(t_bytes, t_chain),
+             bound_by="chain" if t_chain >= t_bytes else "bytes")
+    if err:
+        raise SystemExit(f"S2 disagrees with its plain version on a "
+                         f"main-path walk: {c}")
+    return c
 
 
 def phase_scale_stream(tmp: Path, dev_info, resident_peak: int,
@@ -2467,6 +2550,7 @@ def phase_scale_blastx(tmp: Path, dev_info, n_q=1024) -> dict:
 
     rec = main_search(make_opt(tmp / "big_x.m8"), ss_inputs=True)
     ss_cmp = phase_scale_searchsorted("blastx", rec, dev_info)
+    sw_cmp = phase_scale_slot_walk("blastx", rec, dev_info)
     rec.pop("ss_inputs")
     ctx, stats = rec.pop("ctx"), rec["stats"]
     hits: dict = {}
@@ -2519,7 +2603,8 @@ def phase_scale_blastx(tmp: Path, dev_info, n_q=1024) -> dict:
         raise SystemExit("K1 disagrees with its plain version on the BLASTX "
                          "search's inputs")
     return dict(launches=rec["launches"], cmp=cmp, reruns=reruns,
-                ss_launches=rec["ss_launches"], ss_cmp=ss_cmp)
+                ss_launches=rec["ss_launches"], ss_cmp=ss_cmp,
+                sw_launches=rec["sw_launches"], sw_cmp=sw_cmp)
 
 
 def rerun_search(ctx, make_opt, out: Path, mode: str, want_m8: bytes,
@@ -2766,6 +2851,20 @@ def main() -> int:
                 scale_pigeon=pigeon[1]["ss_launches"],
                 scale_pigeon_stream=pigeon[4]["ss_launches"],
                 **{f"scale_mesh_{q}x{d}": r["ss_launches"]
+                   for (q, d), r in smesh.items()})),
+        kernel_entry(
+            "S2 slot_walk", "lambda_tpu_torch/csrc/slot_walk.cu",
+            "none (lambda_tpu/search/seeding.py:503, the slot walk in a "
+            "lax.scan)",
+            scale["sw_launches"], 0, scale["sw_cmp"],
+            blastx=cmp_sums(blastx["sw_cmp"], blastx["sw_launches"]),
+            warp_sum_ns=dev_info["warp_sum_ns"],
+            path_launches=dict(
+                scale_blastx=blastx["sw_launches"],
+                scale_stream=stream["sw_launches"],
+                scale_pigeon=pigeon[1]["sw_launches"],
+                scale_pigeon_stream=pigeon[4]["sw_launches"],
+                **{f"scale_mesh_{q}x{d}": r["sw_launches"]
                    for (q, d), r in smesh.items()})),
     ])
     emit(ok=True, device=dict(platform="gpu",

@@ -23,6 +23,10 @@
 // Modes 1-4 issue CH instructions per iteration (mode 4: 7 * CELLS), one
 // per operation; nvcc spreads mode 0's adds over IADD3 and IMAD, which
 // issue on two pipes, so its rate is that of adds as compiled.
+//   5  the carry of the slot walk (csrc/slot_walk.cu): per iteration a
+//      warp sum of an int64 (five shuffles and adds) and one add, each
+//      iteration waiting for the last; launched as one warp, its time
+//      over `iters` is the latency of one slot's chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,6 +96,22 @@ __global__ void int_rate_kernel(const int32_t* __restrict__ in, int iters,
     out[t] = acc;
 }
 
+__global__ void warp_chain_kernel(const int32_t* __restrict__ in, int iters,
+                                  int32_t* __restrict__ out)
+{
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    long long h = in[0] + t;
+    const long long y = in[1];
+    for (int it = 0; it < iters; ++it) {
+        long long v = h;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+        h += v + y;
+    }
+    out[t] = (int32_t)(h ^ (h >> 32));
+}
+
 // Plain C entry point (loaded with ctypes): one launch of `mode` on
 // `blocks` x `threads`; `in` holds 16 int32 seeds, `out` one int32 per
 // thread.  Returns cudaGetLastError() of the launch (-1 for an unknown
@@ -110,6 +130,8 @@ extern "C" int int_rate_launch(int mode, int blocks, int threads, int iters,
     case 3: int_rate_kernel<3><<<blocks, threads, 0, st>>>(in, iters, out);
         break;
     case 4: int_rate_kernel<4><<<blocks, threads, 0, st>>>(in, iters, out);
+        break;
+    case 5: warp_chain_kernel<<<blocks, threads, 0, st>>>(in, iters, out);
         break;
     default: return -1;
     }

@@ -31,22 +31,26 @@ Stage 1 is reorganised for eager execution without changing a single
 decision: every slot's initial search is independent of the carry, and
 so is each cursor's occurrence-count CURVE (the counts of its variant
 extended by 0..ext_max further query characters -- the JAX package's
-``curve_impl``).  Both run batched over all slots; the Python loop over
-slots then only replays the accept/revert walk on the curves, carrying
-hitsThisSeq (:func:`_slot_walk`, the one copy of that decision for the
+``curve_impl``).  Both run batched over all slots; the slot walk then
+only replays the accept/revert walk on the curves, carrying hitsThisSeq
+(``ops/slot_walk.py:slot_walk``, the one copy of that decision for the
 resident seeder, the stream decide and pigeonhole's walk on verified
 counts).  On the card each batched search and each set of curves is one
 launch of ``csrc/searchsorted.cu``, which bisects every range until it is
 empty, as the JAX while-loop does, and skips padded slots and identity
 substitutions without a key read; on the CPU the plain versions bound
 their steps by the largest initial range.  Both give the exact ranges.
+The slot walk is one call of ``csrc/slot_walk.cu`` on the card (one warp
+per query carries its hitsThisSeq across the slots, no host read) and a
+loop over the slots on the CPU.
 
 Every entry point takes an optional ``stats`` (a StatsHolder): the count
 curves and the slot walk are then its span ``time_seed_walk``, each
 device-to-host read (a ``.tolist()``, ``nonzero`` or ``int`` of a
-tensor) counts in ``seed_syncs``, and the batched searches count their
+tensor) counts in ``seed_syncs``, the batched searches count their
 rows in ``seed_search_rows`` and the invalid ones in
-``seed_search_skipped``.  Without it nothing is recorded.
+``seed_search_skipped``, and the slot walks their rows in
+``seed_walk_rows``.  Without it nothing is recorded.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import kmer, searchsorted as ss
+from ..ops import kmer, searchsorted as ss, slot_walk as sw
 
 # rows of (slot, query, variant) searched per batched initial search
 _SEARCH_ROWS = 1 << 21
@@ -203,59 +207,6 @@ def _seed_mode(cfg: SeedConfig):
         cfg.seed_length, cfg.max_seed_dist, cfg.alphabet_size,
         cfg.half_exact)
     return pigeon, None, None, 0, len(positions), positions, replacements
-
-
-def _slot_walk(cfg: SeedConfig, curve, t_w, q_w, beg_w, flen_w, rem_w,
-               base, hits0, stats=None):
-    """The adaptive elongation walk (search_algo.hpp:679-726) of rows
-    sorted by seed slot: the resident seeder's walked cursors, the stream
-    decide's cursors with a nonzero global count, or pigeonhole's seed
-    slots with verified occurrences.
-
-    curve (n, E+1): each row's count with 0..E further query characters;
-    t_w/q_w (n,): its slot and query; beg_w, flen_w, rem_w (n,): its
-    seedBegin, frame length and remaining-seed estimate; base (T, Q): the
-    hitsThisSeq increments of each slot's rows that are not walked; hits0
-    (Q,) the carried hitsThisSeq.  Step e accepts while the next position
-    is inside the frame, the count is nonzero, and the extended count is
-    not below both desiredOccs and the current count; the first refusal
-    freezes the row.  A slot's kept rows (count in (0, occ_cap]) add their
-    counts to hitsThisSeq before the next slot.  Returns L (n,), the
-    accepted elongations."""
-    n, E1 = curve.shape
-    E = E1 - 1
-    dev = curve.device
-    T, Q = base.shape
-    k, mm, hf = cfg.seed_length, cfg.max_matches, cfg.heuristic_factor
-    L = torch.zeros(n, dtype=torch.int64, device=dev)
-    if n == 0:
-        return L
-    er = torch.arange(E, device=dev)
-    c1, c2 = curve[:, :E], curve[:, 1:]
-    can = ((beg_w[:, None] + k + er[None, :]) < flen_w[:, None]) & (c1 > 0)
-    grow = c2 < c1
-    hts_before = hits0.to(torch.int64)[None, :] + torch.cumsum(base, dim=0) \
-        - base
-    walked_acc = torch.zeros(Q, dtype=torch.int64, device=dev)
-    bounds = torch.searchsorted(t_w, torch.arange(T + 1, device=dev)).tolist()
-    _synced(stats)
-    for t in range(T):
-        a, b = bounds[t], bounds[t + 1]
-        if a == b:
-            continue
-        qs = q_w[a:b]
-        hts = (hts_before[t] + walked_acc)[qs]
-        desired = torch.where(
-            hts >= mm, 1,
-            torch.clamp((mm - hts) * hf // rem_w[a:b].clamp(min=1), min=1))
-        revert = (c2[a:b] < desired[:, None]) & grow[a:b]
-        accept = can[a:b] & ~revert
-        Lt = torch.cumprod(accept.to(torch.int64), dim=1).sum(dim=1)
-        L[a:b] = Lt
-        gfin = curve[a:b].gather(1, Lt[:, None])[:, 0]
-        kept = (gfin > 0) & (gfin <= cfg.occ_cap)
-        walked_acc.index_add_(0, qs, torch.where(kept, gfin, 0))
-    return L
 
 
 # the compacted cursor arrays stage 2 takes
@@ -476,7 +427,7 @@ class Seeder:
               rem, hits0, Q, T, stats=None):
         """Adaptive elongation of the walked cursors, in place on the
         (T, Q*V) lo/count/seed_len arrays: their count curves, then
-        :func:`_slot_walk` with the kept counts of the cursors that are not
+        ``slot_walk`` with the kept counts of the cursors that are not
         walked (fixed at their initial count) as each slot's base."""
         cfg = self.cfg
         with _walk_span(stats):
@@ -490,8 +441,8 @@ class Seeder:
             fixed = (cnt_t > 0) & (cnt_t <= cfg.occ_cap) \
                 & ~walk.reshape(T, Q, self.V)
             base = torch.where(fixed, cnt_t, 0).sum(dim=2)      # (T, Q)
-            L = _slot_walk(cfg, cnt_curve, t_w, q_w, begin[r_w],
-                           qlens[gs[r_w]], rem[r_w], base, hits0, stats)
+            L = sw.slot_walk(cfg, cnt_curve, t_w, q_w, begin[r_w],
+                             qlens[gs[r_w]], rem[r_w], base, hits0, stats)
             lo.view(-1)[widx] = lo_curve.gather(1, L[:, None])[:, 0]
             count.view(-1)[widx] = cnt_curve.gather(1, L[:, None])[:, 0]
             seed_len.view(-1)[widx] = cfg.seed_length + L
@@ -692,7 +643,7 @@ class Seeder:
         """(L_dense, keep_dense) (Q*T,) from the GLOBAL per-slot verified
         counts ``cnt`` (Q*T, E+1): the whole-seed abundance cutoff, and
         with adaptive seeding the elongation by verification, walked over
-        each query's slots in schedule order (:func:`_slot_walk`).  The
+        each query's slots in schedule order (``slot_walk``).  The
         resident stage 2 takes it on its own counts, the stream decide
         (delta >= 2) on the shard-summed ones."""
         cfg = self.cfg
@@ -708,10 +659,10 @@ class Seeder:
             _synced(stats)
             g, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
                                                 slot_rem)
-            L = _slot_walk(cfg, curve[rows], rows // Q, rows % Q,
-                           begin[rows], qlens.to(torch.int64)[gs[rows]],
-                           rem[rows], torch.zeros((T, Q), dtype=torch.int64,
-                                                  device=dev), hits0, stats)
+            L = sw.slot_walk(cfg, curve[rows], rows // Q, rows % Q,
+                             begin[rows], qlens.to(torch.int64)[gs[rows]],
+                             rem[rows], torch.zeros((T, Q), dtype=torch.int64,
+                                                    device=dev), hits0, stats)
         gfin = curve[rows].gather(1, L[:, None])[:, 0]
         keep = torch.zeros(Q * T, dtype=torch.bool, device=dev)
         L_all = torch.zeros(Q * T, dtype=torch.int64, device=dev)
@@ -815,7 +766,7 @@ class Seeder:
 
     def curve_decide(self, curves, qlens, slot_frame, slot_begin, slot_rem,
                      hits0, max_cursors: int = 0, stats=None):
-        """Stream decide (delta <= 1): the stage-1 walk (:func:`_slot_walk`)
+        """Stream decide (delta <= 1): the stage-1 walk (``slot_walk``)
         and abundance cutoff on the GLOBAL (shard-summed) curves, every
         cursor with a nonzero global count walked.  With ``max_cursors``
         (the device mesh) only the first ``max_cursors`` of them per slot,
@@ -845,9 +796,9 @@ class Seeder:
                 _, gs, begin, rem = self._slot_rows(slot_frame, slot_begin,
                                                     slot_rem)
                 r_w = widx // V
-                Lw = _slot_walk(cfg, c[widx], r_w // Q, r_w % Q, begin[r_w],
-                                qlens.to(torch.int64)[gs[r_w]], rem[r_w],
-                                base, hits0, stats)
+                Lw = sw.slot_walk(cfg, c[widx], r_w // Q, r_w % Q,
+                                  begin[r_w], qlens.to(torch.int64)[gs[r_w]],
+                                  rem[r_w], base, hits0, stats)
                 L[widx] = Lw
                 gfin[widx] = c[widx].gather(1, Lw[:, None])[:, 0]
 

@@ -21,6 +21,8 @@ import time
 
 import torch
 
+from .ops import slot_walk
+
 
 def span(name: str):
     """A ``record_function`` span ``name`` while a torch profiler runs;
@@ -119,6 +121,9 @@ class StatsHolder:
     # (see skipped_counter) and read once the call's work is done
     seed_search_rows: int = 0
     seed_search_skipped: int = 0
+    # the rows of seeding's slot walks (ops/slot_walk.py), known on the
+    # host from the nonzero each walk's caller reads
+    seed_walk_rows: int = 0
     # the device mesh (--db-shards/--q-shards), nested: pass A's per-cell
     # counts reaching each q row's first card and summed there (in
     # time_seed); each cell's stats vector, packed rows and pass-1 scores
@@ -262,6 +267,9 @@ class StatsHolder:
             if self.seed_search_rows:
                 print(f"   [seed search: rows {self.seed_search_rows}, "
                       f"skipped {self.seed_search_skipped}]")
+            if self.seed_walk_rows:
+                print(f"   [seed walk: rows {self.seed_walk_rows}, "
+                      f"S2 launches in this process {slot_walk.launches}]")
             if self.dev_card_sum_s or self.time_mesh_gather:
                 print(f"   [mesh: reduce {self.time_mesh_reduce:.2f} s, "
                       f"gather {self.time_mesh_gather:.2f} s, cards "

@@ -9,7 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from lambda_tpu_torch.ops import searchsorted as ss, sw_band, sw_rect
+from lambda_tpu_torch.ops import (searchsorted as ss, slot_walk, sw_band,
+                                  sw_rect)
+from test_torch_slot_walk import CASES as WALK_CASES, WalkCase, \
+    cfg_of, walk_case
 
 GF, GE = -12, -1
 
@@ -581,3 +584,119 @@ def test_db_shards4_on_four_cards_is_byte_equal_to_one_card(card, tmp_path):
     assert 0 < four.time_mesh_gather
     assert four.card_mem_peak_bytes >= torch.cuda.max_memory_allocated(1) > 0
     assert st[1].dev_card_sum_s == st[1].card_mem_peak_bytes == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_slot_walk_kernel_matches_plain_version(card, name):
+    """csrc/slot_walk.cu == slot_walk_torch, every row, on each case of
+    tests/test_torch_slot_walk.py (empty slots, E 0/1/5/7/40, one row a
+    slot, counts at occ_cap and occ_cap + 1, hits0 >= max_matches, rem 0,
+    a nonzero base, the frame's end inside the curve, segments of more
+    than 32 rows) and two seeds; one launcher call each."""
+    case = WALK_CASES[name]
+    cfg = cfg_of(case)
+    for seed in (3, 2147483659):
+        args = walk_case(case, seed)
+        want = slot_walk.slot_walk_torch(cfg, *args)
+        before = slot_walk.launches
+        got = slot_walk.slot_walk(cfg, *(x.to(card) for x in args))
+        assert slot_walk.launches == before + 1
+        assert torch.equal(got.cpu(), want), seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.01, 0.15])
+def test_slot_walk_kernel_at_phase2_size(card, density):
+    """S2 == its plain version at phase 2's sizes: 512 queries, 1,024
+    slots, the variant table of seed length 11 at one substitution (V
+    rows a slot and query at most), curves of 22 counts; up to the
+    seeder's 4,096 walked cursors a slot."""
+    from lambda_tpu_torch.ops import kmer
+
+    V = len(kmer.variant_table(11, 1, 10, True)[0])
+    case = WalkCase(T=1024, Q=512, V=V, E=21, density=density,
+                    hits0_max=1)
+    cfg = cfg_of(case)
+    args = walk_case(case, 2147483659)
+    dev_args = [x.to(card) for x in args]
+    want = slot_walk.slot_walk_torch(cfg, *dev_args)
+    got = slot_walk.slot_walk(cfg, *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((want > 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_slot_walk_refuses_wrong_dtype_or_device(card):
+    case = WALK_CASES["E5"]
+    cfg = cfg_of(case)
+    args = [x.to(card) for x in walk_case(case, 1)]
+    for i, bad in ((0, args[0].to(torch.int32)), (1, args[1].cpu()),
+                   (6, args[6].t()), (5, args[5][:-1])):
+        with pytest.raises(ValueError):
+            slot_walk.slot_walk(cfg, *args[:i], bad, *args[i + 1:])
+
+
+SEEDER_PATHS = [(1, 1), (1, 2), (2, 1), (2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta,stream", SEEDER_PATHS,
+                         ids=["resident", "stream_decide", "pigeon",
+                              "pigeon_stream"])
+def test_seeders_walk_on_the_card_as_on_the_cpu(card, tmp_path, delta,
+                                                stream):
+    """The resident seeder, the stream decide (--db-stream 2) and
+    pigeonhole (--seed-delta 2, resident and streamed): every batch's
+    packed rows and stats vector of both phases' seeding on the card equal
+    the CPU's, and the card's walks launch S2."""
+    from lambda_tpu_torch import alphabets as ab, cli, options
+    from lambda_tpu_torch.io import fasta
+    from lambda_tpu_torch.search import pipeline
+    from lambda_tpu_torch.stats import StatsHolder
+
+    rng = np.random.default_rng(22)
+    letters = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    db = letters[rng.integers(0, 20, (60, 300))]
+    fasta.write_fasta(tmp_path / "db.fasta", [
+        fasta.SeqRecord(f"s{i}", r.tobytes()) for i, r in enumerate(db)])
+    qs = []
+    for i in range(20):
+        q = db[i * 3, 40:220].copy()
+        q[rng.integers(0, len(q), 8)] = letters[rng.integers(0, 20, 8)]
+        qs.append(fasta.SeqRecord(f"q{i}", q.tobytes()))
+    qs += [fasta.SeqRecord(f"r{i}", letters[rng.integers(0, 20, 150)]
+                           .tobytes()) for i in range(8)]
+    fasta.write_fasta(tmp_path / "q.fasta", qs)
+    assert cli.main(["mkindexp", "-d", str(tmp_path / "db.fasta"), "-i",
+                     str(tmp_path / "db.lit"), "-v", "0"]) == 0
+    outs, walked = {}, {}
+    for dev in ("cpu", "cuda"):
+        opt = options.make_search_options(
+            options.Domain.PROTEIN, query_file=str(tmp_path / "q.fasta"),
+            index_file=str(tmp_path / "db.lit"),
+            output=str(tmp_path / f"{dev}.m8"), verbosity=0)
+        opt.db_stream = stream
+        opt.search_opts.max_seed_dist = delta
+        ctx = pipeline.SearchContext(opt, dev)
+        seqs = [ab.encode(r.seq, ctx.qry_orig_alph)
+                for r in fasta.read_fasta(str(tmp_path / "q.fasta"))]
+        before = slot_walk.launches
+        st = StatsHolder()
+        outs[dev] = []
+        for so in (opt.search_opts0, opt.search_opts):
+            for i in range(0, len(seqs), 8):
+                sd = ctx.dispatch_seeding(seqs[i:i + 8], so, st)
+                for r in (sd.stream_outs if stream > 1 else [sd.res2]):
+                    outs[dev].append([r[k].cpu() for k in
+                                      ("packed", "stats_vec")])
+        walked[dev] = (slot_walk.launches - before, st.seed_walk_rows)
+        del ctx
+    assert walked["cpu"][0] == 0 and walked["cuda"][0] > 0
+    assert walked["cuda"][1] == walked["cpu"][1] > 0
+    assert len(outs["cuda"]) == len(outs["cpu"]) > 0
+    assert any(int(sv[4]) > 0 for _, sv in outs["cpu"])
+    for (pc, sc), (pg, sg) in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(sg, sc)
+        assert torch.equal(pg, pc)
