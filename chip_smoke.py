@@ -1579,7 +1579,7 @@ def phase_mesh_step(dev_info) -> dict:
         args = (m.put_q(red_q), m.put_q(trans_q), m.put_db(st["keys"]),
                 m.put_db(st["pos"]), m.put_db(st["rows"]), m.put_db(sbj),
                 m.put_db(sbj_len), m.put_all(subst))
-        step = pmesh.make_sharded_search_step(m, cfg, st["keys"].shape[1])
+        step = pmesh.make_sharded_search_step(m, cfg)
         with capture("_sw_score_cuda", first(1), sw_rect) as k4_in:
             sw_rect.launches = 0                   # this path starts
             (merged, total), step_ms = timed(lambda: step(*args))
@@ -2301,15 +2301,13 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     def phase2_walk(a, captured):      # the first walk of phase 2's seeds
         return not captured and a[0].max_seed_dist == delta
 
-    from lambda_tpu_torch.parallel import mesh as pmesh
-
     q, db = kw.get("grid", (1, 1))
     devices = ["cuda:0"] * (q * db) if q * db > 1 else None
     gc.collect()                       # the previous context is gone
     torch.cuda.empty_cache()
     with counting(pipeline.SearchContext, "_next_scale") as retries, \
             capture("_slot_walk_cuda", phase2_walk, slot_walk) as walk_in, \
-            cell_calls(pmesh.ShardedBandScorer) as per_cell, \
+            cell_calls() as per_cell, \
             timing(pipeline.SearchContext, "_mesh_setup") as setup_s:
         rec = main_search(scale_opt(tmp, out, **kw), devices)
     ctx, stats = rec.pop("ctx"), rec["stats"]
@@ -2346,8 +2344,9 @@ def scale_run(tmp: Path, dev_info, out: Path, n_q: int, **kw) -> dict:
     if ctx.mesh is not None:
         r["grid"] = [q, db]
         r["mesh_setup_s"] = round(setup_s[0], 3)
-        r["k1_launches_per_cell"] = [per_cell.get(c, 0)
-                                     for c in range(q * db)]
+        r["k1_launches_per_cell"] = [
+            per_cell.get((c // db, int(ctx.shard_base[c % db])), 0)
+            for c in range(q * db)]
         r["mesh_device_bytes"] = sum(
             t.numel() * t.element_size() for name, cells in ctx.d_sh.items()
             if cells is not None for t in {id(x): x for x in cells}.values())
@@ -2384,21 +2383,33 @@ def timing(cls, name: str):
 
 
 @contextlib.contextmanager
-def cell_calls(cls):
-    """Counts the calls of ``cls.cell`` per cell index: the mesh's pass-1
-    launches per cell (parallel/mesh.py:ShardedBandScorer)."""
-    meth = cls.cell
+def cell_calls():
+    """Counts the pass-1 launches (``sw_band.sw_band_score_device``) per
+    part of search/extend.py's launch loop: each call goes to the part
+    whose windows ``extend._gather_windows`` gathered just before it,
+    keyed (q block, subject frame base).  On the mesh a part is a cell."""
+    from lambda_tpu_torch.ops import sw_band
+    from lambda_tpu_torch.search import extend
+
+    gather, score = extend._gather_windows, sw_band.sw_band_score_device
     calls: dict = {}
+    part = [None]
 
-    def hook(self, c, *a):
-        calls[c] = calls.get(c, 0) + 1
-        return meth(self, c, *a)
+    def gather_hook(resident, m, idxs, pad, N, q_base=0, s_base=0):
+        part[0] = (q_base // resident[0].shape[0], s_base)
+        return gather(resident, m, idxs, pad, N, q_base, s_base)
 
-    cls.cell = hook
+    def score_hook(*a):
+        calls[part[0]] = calls.get(part[0], 0) + 1
+        return score(*a)
+
+    extend._gather_windows = gather_hook
+    sw_band.sw_band_score_device = score_hook
     try:
         yield calls
     finally:
-        cls.cell = meth
+        extend._gather_windows = gather
+        sw_band.sw_band_score_device = score
 
 
 def slot_walk_cost(args, dev_info) -> dict:

@@ -23,10 +23,12 @@ after another in the one process:
   (search/seeding.py:stream_passes) -- pass A on each cell of a q row,
   the sum of its counts onto the row's first device (``Mesh.reduce_db``,
   the psum), one decide there, pass B per cell with the decisions forced;
-* :func:`make_sharded_band_scorer`: pass 1 per cell (K1, or K3 in the
-  sublane layout) on windows gathered from the cell's LOCAL subject shard;
 * :func:`make_sharded_search_step`: the fused demo step (fixed seeds,
   locate, windowed SW with K4, top-k merged over each q row).
+
+Pass 1 over the grid is search/extend.py's one launch loop with one part
+per cell (``SearchContext._sharded_scores``): the cell's q block and its
+LOCAL subject shard.
 
 ``--distributed`` (search/pipeline.py:run_search) joins processes into a
 ``torch.distributed`` group; the search itself uses no collective.
@@ -281,13 +283,6 @@ class Mesh:
         return self._place(lambda c: c // D, lambda c, dev: _tensor_on(
             x[(c // D) * b:(c // D + 1) * b], dev, dtype))
 
-    def put_cells(self, x, dtype=None) -> list:
-        """``x`` (q_shards, db_shards, ...): cell (i, j) gets ``x[i, j]``
-        (P('q', 'db'))."""
-        D = self.shape[1]
-        return self._place(lambda c: c, lambda c, dev: _tensor_on(
-            x[c // D, c % D], dev, dtype))
-
     def put_all(self, x, dtype=None) -> list:
         """``x`` replicated on every cell (P(None))."""
         return self._place(lambda c: 0,
@@ -319,8 +314,7 @@ def _ext8(subst: torch.Tensor) -> torch.Tensor:
     return e8.contiguous()
 
 
-def make_sharded_search_step(mesh: Mesh, cfg: StepConfig,
-                             n_rows_padded: int):
+def make_sharded_search_step(mesh: Mesh, cfg: StepConfig):
     """The fused demo search step over the (q, db) grid.
 
     Inputs, per cell (``Mesh.put_*``; global shapes as the JAX step's):
@@ -337,9 +331,9 @@ def make_sharded_search_step(mesh: Mesh, cfg: StepConfig,
     concatenated on its first device and cut to the top-k again (the
     JAX step's all_gather + top_k).  Returns (merged (Q, top_k), db_total
     (Q, 1)), both int32 on the first cell's device; db_total is the sum of
-    the shards' subject lengths.  ``n_rows_padded`` (Pmax) bounds the JAX
-    step's bisection; the port's search bisects each range until it is
-    empty, so the argument is kept for the JAX step's signature alone."""
+    the shards' subject lengths.  (The JAX step also takes Pmax, which
+    bounds its bisection; the port's search bisects each range until it
+    is empty.)"""
     k = cfg.seed_length
     Qm, Dm = mesh.shape
 
@@ -439,84 +433,6 @@ def demo_subjects(shards, red_frames):
                 [red_frames[j] for j in range(fb, fb + len(offs) - 1)])
         sbj_len[i] = n
     return sbj, sbj_len
-
-
-def _cell_windows(trans_q, trans_sbj, offsets, lengths, qry_id, qry_start,
-                  qry_len, subj_id, d_lo, d_row, pad: int, N: int):
-    """One cell's pass-1 kernel inputs, gathered on its device: (q, s,
-    d_rows), q (B, N) int8 the query rows of the cell's q block, s (B, N)
-    int8 the VIRTUAL subject windows from its LOCAL subject shard (start
-    d_lo, length qry_len + d_row; outside the subject PAD), d_rows (B,)
-    int32.  Padding rows (qry_len 0, d_row -1) are all PAD."""
-    dev = trans_q.device
-    iq = torch.arange(N, device=dev)
-    qry_id, qry_start, qry_len, subj_id, d_lo, d_row = (
-        x.to(torch.int64) for x in (qry_id, qry_start, qry_len, subj_id,
-                                    d_lo, d_row))
-    qidx = (qry_start[:, None] + iq[None, :]).clamp(0, trans_q.shape[1] - 1)
-    qwin = trans_q[qry_id.clamp(0, trans_q.shape[0] - 1)[:, None], qidx]
-    qwin = torch.where(iq[None, :] < qry_len[:, None], qwin, pad)
-    sid = subj_id.clamp(0, offsets.shape[0] - 1)
-    spos = d_lo[:, None] + iq[None, :]
-    sval = (spos >= 0) & (spos < lengths[sid][:, None]) \
-        & (iq[None, :] < (qry_len + d_row)[:, None])
-    sabs = (offsets[sid][:, None] + spos).clamp(0, trans_sbj.shape[0] - 1)
-    swin = torch.where(sval, trans_sbj[sabs], pad)
-    return (qwin.to(torch.int8).contiguous(),
-            swin.to(torch.int8).contiguous(), d_row.to(torch.int32))
-
-
-class ShardedBandScorer:
-    """Pass 1 over the (q, db) grid for one (window N, band D) class: each
-    cell gathers the windows of ITS matches from ITS local subject shard
-    and scores them with ``sw_band.sw_band_score_device`` -- K1 (K3 in the
-    sublane layout) on a CUDA device, the plain version on the CPU --
-    with the latched ``LAMBDA_SW_XDROP`` at the JAX lane plan's column
-    chunk for N (``sw_band.plan_nc``), as ``extend.sw_scores_device``
-    scores a class.  One launch per cell."""
-
-    def __init__(self, mesh: Mesh, N: int, D: int, gap_first: int,
-                 gap_extend: int):
-        self.mesh, self.N, self.D = mesh, N, D
-        self.gf, self.ge = int(gap_first), int(gap_extend)
-
-    def cell(self, c: int, trans_q, trans_sbj, offsets, lengths, qry_id,
-             qry_start, qry_len, subj_id, d_lo, d_row, e8) -> torch.Tensor:
-        """Cell ``c``'s scores (Bp,) int32 on its device."""
-        q, s, d_rows = _cell_windows(trans_q, trans_sbj, offsets, lengths,
-                                     qry_id, qry_start, qry_len, subj_id,
-                                     d_lo, d_row, e8.shape[0] - 1, self.N)
-        x_drop = sw_band._XDROP
-        return sw_band.sw_band_score_device(
-            q, s, d_rows, e8, self.D, self.gf, self.ge, x_drop,
-            sw_band.plan_nc(self.N, self.D) if x_drop else 0)
-
-    def __call__(self, trans_q, trans_sbj, offsets, lengths, qry_id,
-                 qry_start, qry_len, subj_id, d_lo, d_row, e8,
-                 card_events=None) -> list:
-        """Per-cell inputs (``Mesh.put_*``): trans_q the (G, L) query frame
-        rows (put_q); trans_sbj, offsets, lengths the local subject shards
-        (put_db); the match arrays (q_shards, db_shards, Bp) with LOCAL ids
-        -- qry_id relative to the q block's first frame row, subj_id the
-        frame within the db shard -- and padding rows of qry_len 0, d_row
-        -1 (put_cells); e8 the int8 matrix (put_all).  Returns each cell's
-        scores, a list in cell order.  ``card_events``: a list that takes
-        each cell's CUDA events (stats.card_clock)."""
-        args = (trans_q, trans_sbj, offsets, lengths, qry_id, qry_start,
-                qry_len, subj_id, d_lo, d_row, e8)
-        out = []
-        for c, dev in enumerate(self.mesh.devices):
-            with card_clock(card_events, dev):
-                out.append(self.cell(c, *(a[c] for a in args)))
-        return out
-
-
-def make_sharded_band_scorer(mesh: Mesh, N: int, D: int, gap_first: int,
-                             gap_extend: int) -> ShardedBandScorer:
-    """Pass-1 banded extension over the (q, db) grid: the distributed
-    form of ``extend.sw_scores_device`` (see :class:`ShardedBandScorer`);
-    the subject concat is never replicated across db."""
-    return ShardedBandScorer(mesh, N, D, gap_first, gap_extend)
 
 
 def make_sharded_seeder(mesh: Mesh, seeder: seeding.Seeder):

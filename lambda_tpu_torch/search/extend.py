@@ -9,14 +9,15 @@ Port of ``lambda_tpu/search/extend.py`` (itself a port of
   (host numpy + the native merge passes).
 * ``iterateMatchesFullSimd`` (:1178-1332) two-pass extension: pass 1
   scores every candidate with K1, or K3 in the sublane layout
-  (``sw_scores_device``: windows gathered on the device from the
-  resident query/subject tensors), the caller filters by bit
+  (``score_parts``: windows gathered on the device from each part's
+  query/subject tensors -- one part on one card, one per cell of the
+  device grid), the caller filters by bit
   score/e-value (pass 1 honours ``LAMBDA_SW_XDROP`` as the JAX package
   does), pass 2 (``trace_pass``) runs the traceback with
   alignment statistics in the host C++ helpers, or, under
   ``LAMBDA_SW_TRACE=device``, through K2 on the same device windows with
   a host walk.  Candidates are bucketed by padded (qlen, band) shape
-  class, one launch per class.
+  class, one launch per class and part (``_launch_classes``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from .. import native
 from ..ops import sw_band
+from ..stats import card_clock, timed
 
 
 def band_size(qlen: int | np.ndarray):
@@ -251,33 +253,36 @@ def trace_pass(m: MatchBatch, q_frames, s_window, subst_ext_fwd,
 
 
 def _gather_windows(resident, m: MatchBatch, idxs: np.ndarray, pad: int,
-                    N: int):
+                    N: int, q_base: int = 0, s_base: int = 0):
     """The kernel inputs of one banded shape class, gathered on the
     device from the resident tensors: (q, s, d_rows) with q (B, N) int8
     the query rows, s (B, N) int8 the VIRTUAL subject windows (start
     d_lo, length qlen + d_row; positions outside the subject -> PAD) and
     d_rows (B,) int32.  ``resident`` is (trans_q, trans_sbj, sbj_offsets,
-    sbj_lens); K1, K2 and K3 launches share it.  The subject tensors may
-    live on the host (--db-stream keeps the subject concat there): the
-    subject windows are then gathered on the host and uploaded."""
+    sbj_lens); K1, K2 and K3 launches share it.  Its first query row is
+    the batch's row ``q_base`` and its first subject frame the frame
+    ``s_base`` (a cell of the device grid; 0 on one card).  The subject
+    tensors may live on the host (--db-stream keeps the subject concat
+    there): the subject windows are then gathered on the host and
+    uploaded."""
     trans_q, trans_sbj, sbj_offsets, sbj_lens = resident
     dev = trans_q.device
     qlen, d_row, _ = _ext_geometry(m)
 
-    def col(a, d=dev):
-        return torch.as_tensor(np.asarray(a[idxs], dtype=np.int64),
+    def col(a, d=dev, base=0):
+        return torch.as_tensor(np.asarray(a[idxs], dtype=np.int64) - base,
                                device=d)
 
-    qry_id, qry_start, qry_len, d_rows = (
-        col(a) for a in (m.qry_id, m.qry_start, qlen, d_row))
+    qry_id = col(m.qry_id, base=q_base)
+    qry_start, qry_len, d_rows = (col(a) for a in (m.qry_start, qlen, d_row))
     iq = torch.arange(N, device=dev)
     qidx = (qry_start[:, None] + iq[None, :]).clamp(0, trans_q.shape[1] - 1)
     qwin = trans_q[qry_id[:, None], qidx]
     qwin = torch.where(iq[None, :] < qry_len[:, None], qwin, pad)
 
     sdev = trans_sbj.device
-    subj_id, d_lo, s_lim = (col(a, sdev) for a in (m.subj_id, m.d_lo,
-                                                    qlen + d_row))
+    subj_id = col(m.subj_id, sdev, s_base)
+    d_lo, s_lim = (col(a, sdev) for a in (m.d_lo, qlen + d_row))
     iqs = torch.arange(N, device=sdev)
     spos = d_lo[:, None] + iqs[None, :]          # subject coords
     sval = (spos >= 0) & (spos < sbj_lens[subj_id][:, None]) \
@@ -289,51 +294,85 @@ def _gather_windows(resident, m: MatchBatch, idxs: np.ndarray, pad: int,
             swin.to(dev).contiguous(), d_rows.to(torch.int32))
 
 
-def _shape_classes(m: MatchBatch, e8_fwd, e8_rev, bs_split: bool, dev):
-    """(qlen bucket, band bucket, matrix) classes of ``m`` in launch
-    order, as (qbk, dbk, idxs, e8 tensor)."""
-    n = len(m)
+def _launch_classes(m: MatchBatch, parts, part_of, e8_fwd, e8_rev,
+                    bs_split: bool, launch, stats=None, card_events=None):
+    """The one launch loop of pass 1 (K1/K3) and of K2: per (qlen bucket,
+    band bucket, matrix) class of ``m``, in sorted order, each part that
+    holds rows of the class gathers their windows (:func:`_gather_windows`)
+    and calls ``launch(q, s, d_rows, e8, qbk, dbk)`` on them.  A part is
+    (resident, q_base, s_base), one device's view of the data: one part
+    with bases 0 on one card (resident, --db-stream, --shard-subset), one
+    per cell on the device grid.  ``part_of`` holds each match's part
+    (None: the one part).  ``stats`` counts one dispatch per class and
+    its rows, whatever the number of parts; ``card_events`` takes CUDA
+    events around each launch (stats.card_clock).  Nothing is pulled:
+    returns (idxs, dbk, launch's output) per launch."""
     qlen, d_row, _ = _ext_geometry(m)
-    rev = (m.subj_id % 2 == 1) if bs_split else np.zeros(n, dtype=bool)
-    e8 = {False: torch.as_tensor(e8_fwd, device=dev),
-          True: torch.as_tensor(e8_rev, device=dev)}
-    return [(qbk, dbk, np.asarray(idxs), e8[r]) for (qbk, dbk, r), idxs in
-            sorted(bucket_groups(qlen, d_row, rev).items())]
+    rev = (m.subj_id % 2 == 1) if bs_split else np.zeros(len(m), dtype=bool)
+    e8s: dict = {}
+    pending = []
+    for (qbk, dbk, r), idxs in sorted(
+            bucket_groups(qlen, d_row, rev).items()):
+        idxs = np.asarray(idxs)
+        if stats is not None:
+            stats.ext_dispatches += 1
+            stats.ext_dispatch_rows += len(idxs)
+        for p, (resident, q_base, s_base) in enumerate(parts):
+            sel = idxs if part_of is None else idxs[part_of[idxs] == p]
+            if len(sel) == 0:
+                continue
+            dev = resident[0].device
+            if (r, dev) not in e8s:
+                e8s[r, dev] = torch.as_tensor(e8_rev if r else e8_fwd,
+                                              device=dev)
+            e8 = e8s[r, dev]
+            with card_clock(card_events, dev):
+                q, s, d_rows = _gather_windows(resident, m, sel,
+                                               e8.shape[0] - 1, qbk + dbk,
+                                               q_base, s_base)
+                pending.append((sel, dbk, launch(q, s, d_rows, e8, qbk,
+                                                 dbk)))
+    return pending
+
+
+def score_parts(m: MatchBatch, parts, part_of, e8_fwd, e8_rev, gap_first,
+                gap_extend, bs_split: bool, stats=None, card_events=None,
+                pull_span: str | None = None) -> np.ndarray:
+    """Pass-1 banded scores of ``m`` over ``parts``, one K1 (or K3)
+    launch per class and part (:func:`_launch_classes`).  (The JAX package
+    merges classes by a cost model measured on the TPU, and turns that
+    merging off under X-drop; padding cannot change an exact score, so
+    launching each class alone gives the same scores.)  With the latched
+    ``LAMBDA_SW_XDROP`` each class is scored with X-drop at the JAX plan's
+    column chunk for that class (lambda_tpu/search/extend.py: the native
+    and XLA wirings take ``_plan(qbk + dbk, dbk)[3]``).  The scores are
+    pulled after the last launch, in the span ``pull_span`` if given."""
+    scores = np.zeros(len(m), dtype=np.int64)
+    if len(m) == 0:
+        return scores
+    x_drop = sw_band._XDROP
+
+    def k1(q, s, d_rows, e8, qbk, dbk):
+        return sw_band.sw_band_score_device(
+            q, s, d_rows, e8, dbk, int(gap_first), int(gap_extend), x_drop,
+            sw_band.plan_nc(qbk + dbk, dbk) if x_drop else 0)
+
+    pending = _launch_classes(m, parts, part_of, e8_fwd, e8_rev, bs_split,
+                              k1, stats, card_events)
+    with timed(stats if pull_span else None, pull_span):
+        for idxs, _, out in pending:
+            scores[idxs] = out.cpu().numpy()
+    return scores
 
 
 def sw_scores_device(m: MatchBatch, d_trans_q, d_trans_sbj, d_sbj_offsets,
                      d_sbj_lens, e8_fwd, e8_rev, gap_first, gap_extend,
                      bs_split: bool, stats=None) -> np.ndarray:
-    """Pass-1 banded scores with device-side window gathering, one K1
-    (or K3) launch per (qlen bucket, band bucket, matrix) class.  (The JAX
-    package merges classes by a cost model measured on the TPU, and turns
-    that merging off under X-drop; padding cannot change an exact score,
-    so launching each class alone gives the same scores.)  With the
-    latched ``LAMBDA_SW_XDROP`` each class is scored with X-drop at the
-    JAX plan's column chunk for that class (lambda_tpu/search/extend.py:
-    the native and XLA wirings take ``_plan(qbk + dbk, dbk)[3]``).
-    ``stats`` records launches and rows per launch."""
-    n = len(m)
-    scores = np.zeros(n, dtype=np.int64)
-    if n == 0:
-        return scores
+    """Pass-1 banded scores on one card: :func:`score_parts` over the one
+    part of the resident tensors."""
     resident = (d_trans_q, d_trans_sbj, d_sbj_offsets, d_sbj_lens)
-    pending = []          # launch every class first, then sync once
-    for qbk, dbk, idxs, e8 in _shape_classes(m, e8_fwd, e8_rev, bs_split,
-                                             d_trans_q.device):
-        if stats is not None:
-            stats.ext_dispatches += 1
-            stats.ext_dispatch_rows += len(idxs)
-        q, s, d_rows = _gather_windows(resident, m, idxs, e8.shape[0] - 1,
-                                       qbk + dbk)
-        x_drop = sw_band._XDROP
-        out = sw_band.sw_band_score_device(
-            q, s, d_rows, e8, dbk, int(gap_first), int(gap_extend), x_drop,
-            sw_band.plan_nc(qbk + dbk, dbk) if x_drop else 0)
-        pending.append((idxs, out))
-    for idxs, out in pending:
-        scores[idxs] = out.cpu().numpy()
-    return scores
+    return score_parts(m, [(resident, 0, 0)], None, e8_fwd, e8_rev,
+                       gap_first, gap_extend, bs_split, stats=stats)
 
 
 def _trace_device(m: MatchBatch, resident, subst_ext_fwd, subst_ext_rev,
@@ -344,16 +383,15 @@ def _trace_device(m: MatchBatch, resident, subst_ext_fwd, subst_ext_rev,
     n = len(m)
     scores = np.zeros(n, dtype=np.int64)
     traces: list = [None] * n
-    e8_fwd = sw_band.ext8_from_ext32(subst_ext_fwd)
-    e8_rev = sw_band.ext8_from_ext32(subst_ext_rev)
-    pending = []          # launch every class first, then walk
-    for qbk, dbk, idxs, e8 in _shape_classes(m, e8_fwd, e8_rev, bs_split,
-                                             resident[0].device):
-        q, s, d_rows = _gather_windows(resident, m, idxs, e8.shape[0] - 1,
-                                       qbk + dbk)
-        pending.append((idxs, dbk, sw_band.sw_band_align_device(
-            q, s, d_rows, e8, dbk, int(gap_first), int(gap_extend))))
-    for idxs, dbk, out in pending:
+
+    def k2(q, s, d_rows, e8, qbk, dbk):
+        return sw_band.sw_band_align_device(q, s, d_rows, e8, dbk,
+                                            int(gap_first), int(gap_extend))
+
+    for idxs, dbk, out in _launch_classes(
+            m, [(resident, 0, 0)], None,
+            sw_band.ext8_from_ext32(subst_ext_fwd),
+            sw_band.ext8_from_ext32(subst_ext_rev), bs_split, k2):
         sc, tr = sw_band.walk_rows(*out, dbk)
         scores[idxs] = sc
         for i, t in zip(idxs, tr):

@@ -589,71 +589,26 @@ class SearchContext:
 
     def _sharded_scores(self, m, d_trans_q, gf: int, ge: int,
                         stats=None) -> np.ndarray:
-        """Pass-1 banded scores over the (q, db) grid: matches are
-        partitioned by (query block, subject shard) cell and bucketed by
-        (qlen, band, matrix) shape class; per class every cell gathers its
-        windows from its LOCAL subject shard and scores them, one launch
-        per (cell, class).  A cell's rows keep the class's match order;
-        rows past a cell's count pad it to the class's largest cell, with
-        qry_len 0 and d_row -1 (score 0, never read)."""
-        from ..parallel import mesh as pmesh
-
-        n = len(m)
-        scores = np.zeros(n, dtype=np.int64)
-        if n == 0:
-            return scores
-        mesh = self.mesh
-        Qm, Dm = mesh.shape
+        """Pass-1 banded scores over the (q, db) grid
+        (extend.score_parts): one part per cell, its q block of query rows
+        and its LOCAL subject shard; a match's part is the cell of its
+        query block and subject shard, so each cell launches its own rows
+        of each (qlen, band, matrix) class, and nothing for a class it
+        holds no row of.  The pulls are the span ``time_mesh_gather``."""
+        Qm, Dm = self.mesh.shape
         q_rows = int(d_trans_q.shape[0]) // Qm
-        qlen, d_row, _ = extend._ext_geometry(m)
-        qsh = m.qry_id // q_rows
-        dsh = np.searchsorted(self.shard_base, m.subj_id, side="right") - 1
-        rev = (m.subj_id % 2 == 1) if self.bs_mode \
-            else np.zeros(n, dtype=bool)
-        trans_q = mesh.put_q(d_trans_q)
-        e8 = {r: mesh.put_all(self.e8_rev if r else self.e8_fwd)
-              for r in set(rev.tolist())}
-        names = ("qry_id", "qry_start", "qry_len", "subj_id", "d_lo",
-                 "d_row")
+        trans_q = self.mesh.put_q(d_trans_q)
+        parts = [((trans_q[c], *(self.d_sh[k][c] for k in
+                                 ("trans", "offsets", "lengths"))),
+                  (c // Dm) * q_rows, int(self.shard_base[c % Dm]))
+                 for c in range(Qm * Dm)]
+        part_of = (m.qry_id // q_rows) * Dm + np.searchsorted(
+            self.shard_base, m.subj_id, side="right") - 1
         card_events = [] if stats is not None else None
-        pending = []          # launch every class first, then sync once
-        for (qbk, dbk, r), idxs in sorted(
-                extend.bucket_groups(qlen, d_row, rev).items()):
-            idxs = np.asarray(idxs)
-            if stats is not None:
-                stats.ext_dispatches += 1
-                stats.ext_dispatch_rows += len(idxs)
-            a, b = qsh[idxs], dsh[idxs]
-            cell = a * Dm + b
-            Bp = max(int(np.bincount(cell, minlength=Qm * Dm).max()), 1)
-            # within-cell slot of every match: its rank under a stable
-            # sort by cell (the class's order within each cell)
-            order = np.argsort(cell, kind="stable")
-            first = np.r_[0, np.flatnonzero(np.diff(cell[order])) + 1]
-            rank = np.arange(len(order)) \
-                - np.repeat(first, np.diff(np.r_[first, len(order)]))
-            p = np.empty(len(idxs), dtype=np.int64)
-            p[order] = rank
-            arrs = {k: np.zeros((Qm, Dm, Bp), dtype=np.int32)
-                    for k in names}
-            arrs["d_row"][:] = -1
-            arrs["qry_id"][a, b, p] = m.qry_id[idxs] - a * q_rows
-            arrs["qry_start"][a, b, p] = m.qry_start[idxs]
-            arrs["qry_len"][a, b, p] = qlen[idxs]
-            arrs["subj_id"][a, b, p] = m.subj_id[idxs] - self.shard_base[b]
-            arrs["d_lo"][a, b, p] = m.d_lo[idxs]
-            arrs["d_row"][a, b, p] = d_row[idxs]
-            out = pmesh.make_sharded_band_scorer(mesh, qbk + dbk, dbk, gf,
-                                                 ge)(
-                trans_q, self.d_sh["trans"], self.d_sh["offsets"],
-                self.d_sh["lengths"], *(mesh.put_cells(arrs[k])
-                                        for k in names), e8[r],
-                card_events=card_events)
-            pending.append((idxs, cell, p, out))
-        with timed(stats, "time_mesh_gather"):
-            for idxs, cell, p, out in pending:
-                scores[idxs] = np.stack([o.cpu().numpy()
-                                         for o in out])[cell, p]
+        scores = extend.score_parts(
+            m, parts, part_of, self.e8_fwd, self.e8_rev, gf, ge,
+            self.bs_mode, stats=stats, card_events=card_events,
+            pull_span="time_mesh_gather")
         if card_events:
             stats.add_card_seconds(card_events)
         return scores
@@ -902,19 +857,16 @@ class SearchContext:
         # streaming); the hit payload moves to the host only after the
         # budgets are accepted, as a bucketed slice of the 16-byte packed
         # rows
+        mesh_stats = stats if self.mesh is not None else None
         while True:
-            parts = sd.stream_outs if self.db_stream > 1 else sd.mesh_outs
-            if parts is not None:
-                # per shard (streaming) or per cell (mesh)
-                with stats.timed("time_locate"), timed(
-                        stats if self.mesh is not None else None,
-                        "time_mesh_gather"):
-                    svs = [r["stats_vec"].cpu().numpy() for r in parts]
-                sv = np.stack(svs).astype(np.int64).sum(axis=0)
-            else:
-                with stats.timed("time_locate"):
-                    sv = sd.res2["stats_vec"].cpu().numpy()
-            stats.seed_syncs += len(parts) if parts is not None else 1
+            # per shard (streaming), per cell (mesh) or the one resident
+            # seeder call
+            parts = sd.stream_outs or sd.mesh_outs or [sd.res2]
+            with stats.timed("time_locate"), timed(mesh_stats,
+                                                   "time_mesh_gather"):
+                svs = [r["stats_vec"].cpu().numpy() for r in parts]
+            sv = np.stack(svs).astype(np.int64).sum(axis=0)
+            stats.seed_syncs += len(parts)
             # the pull waited for the stream, so the seeder calls' events
             # are complete: reading them adds no synchronisation
             for start, end in sd.events:
@@ -946,39 +898,31 @@ class SearchContext:
 
         if n_sel == 0:
             return {}
-        if parts is not None:
-            # the packed rows per shard (per cell, in cell order: the JAX
-            # mesh's (q, db, hit) order), concatenated; local subject-frame
-            # ids -> global, and under the mesh block-local query-frame ids
-            # -> batch rows
-            if self.mesh is None:
-                s_base, q_base = self.stream_base, np.zeros(len(parts),
-                                                             np.int64)
-            else:
-                Qm, Dm = self.mesh.shape
-                s_base = np.tile(self.shard_base, Qm)
-                q_base = np.repeat(np.arange(Qm) * (len(trans) // Qm), Dm)
-            rows = []
-            with stats.timed("time_locate"), timed(
-                    stats if self.mesh is not None else None,
-                    "time_mesh_gather"):
-                for i, r in enumerate(parts):
-                    n_i = int(svs[i][4])
-                    if n_i == 0:
-                        continue
-                    nb = min(extend._bucket(n_i), int(r["packed"].shape[0]))
-                    p = r["packed"][:nb].cpu().numpy()[:n_i].astype(np.int64)
-                    stats.seed_syncs += 1
-                    p[:, 0] += int(s_base[i])
-                    p[:, 3] += int(q_base[i]) << 8
-                    rows.append(p)
-            packed = np.concatenate(rows, axis=0)
-        else:
-            nb = min(extend._bucket(n_sel), int(sd.res2["packed"].shape[0]))
-            with stats.timed("time_locate"):
-                packed = sd.res2["packed"][:nb].cpu().numpy()[:n_sel] \
-                    .astype(np.int64)
-            stats.seed_syncs += 1
+        # the packed rows per part (per cell in cell order: the JAX mesh's
+        # (q, db, hit) order), concatenated; local subject-frame ids ->
+        # global, and under the mesh block-local query-frame ids -> batch
+        # rows
+        q_base = s_base = np.zeros(len(parts), np.int64)
+        if self.mesh is not None:
+            Qm, Dm = self.mesh.shape
+            s_base = np.tile(self.shard_base, Qm)
+            q_base = np.repeat(np.arange(Qm) * (len(trans) // Qm), Dm)
+        elif sd.stream_outs:
+            s_base = self.stream_base
+        rows = []
+        with stats.timed("time_locate"), timed(mesh_stats,
+                                               "time_mesh_gather"):
+            for i, r in enumerate(parts):
+                n_i = int(svs[i][4])
+                if n_i == 0:
+                    continue
+                nb = min(extend._bucket(n_i), int(r["packed"].shape[0]))
+                p = r["packed"][:nb].cpu().numpy()[:n_i].astype(np.int64)
+                stats.seed_syncs += 1
+                p[:, 0] += int(s_base[i])
+                p[:, 3] += int(q_base[i]) << 8
+                rows.append(p)
+        packed = np.concatenate(rows, axis=0)
         seed_len = packed[:, 3] & 0xFF
         stats.add_seed_lens(seed_len)
         m = extend.MatchBatch(

@@ -3,8 +3,9 @@ package's, on the same numpy-seeded inputs, every comparison exact: the
 fused demo step (make_sharded_search_step, K4's function per cell) on
 the JAX package's virtual 8-device CPU mesh and on a grid of CPU devices,
 the sharded seeder's hit sets (adaptive off and on, pigeonhole, and an
-elongation budget that overflows), the sharded band scorer (pass 1, with
-and without X-drop), and the grid's placement and psum."""
+elongation budget that overflows), pass 1 over the grid's cells (with
+and without X-drop, and a cell that holds no row of a class), and the
+grid's placement and psum."""
 
 import dataclasses
 
@@ -22,7 +23,7 @@ from lambda_tpu_torch import frames as tfr
 from lambda_tpu_torch.index.build import build_kmer_index as tbuild
 from lambda_tpu_torch.ops import sw_band as tsw, sw_rect
 from lambda_tpu_torch.parallel import mesh as tmesh
-from lambda_tpu_torch.search import seeding as tseed
+from lambda_tpu_torch.search import extend as tx, seeding as tseed
 
 CPU = torch.device("cpu")
 
@@ -106,7 +107,7 @@ def test_search_step_equals_jax(n_db):
         jput(jm, st["rows"], "db"), jput(jm, sbj, "db", None),
         jput(jm, sbj_len, "db"), jput(jm, subst, None, None))
     m = grid(nq, n_db)
-    step = tmesh.make_sharded_search_step(m, cfg, st["keys"].shape[1])
+    step = tmesh.make_sharded_search_step(m, cfg)
     before = sw_rect.launches
     got, total = step(m.put_q(red_q), m.put_q(trans_q), m.put_db(st["keys"]),
                       m.put_db(st["pos"]), m.put_db(st["rows"]),
@@ -309,12 +310,39 @@ def _band_inputs(rng, Qm, Dm, N, D):
     return trans_q, trans, offs, lens, arrs
 
 
+def _band_parts(Qm, Dm, trans_q, trans, offs, lens, arrs):
+    """The real rows of ``_band_inputs`` (d_row >= 0) as one MatchBatch
+    with global ids -- query rows of cell (i, j) offset by i's q block,
+    subject frames by j's shard base -- with each row's cell (i, j) and
+    its slot there, and the grid's parts: one per cell, its q block and
+    its local subject shard (SearchContext._sharded_scores's parts)."""
+    q_rows, F = trans_q.shape[0] // Qm, offs.shape[1]
+    i, j, k = np.nonzero(arrs["d_row"] >= 0)
+    at = {n: arrs[n][i, j, k].astype(np.int64) for n in arrs}
+    m = tx.MatchBatch(
+        qry_id=at["qry_id"] + i * q_rows, subj_id=at["subj_id"] + j * F,
+        qry_start=at["qry_start"], qry_end=at["qry_start"] + at["qry_len"],
+        subj_start=np.zeros_like(at["d_lo"]),
+        subj_end=np.zeros_like(at["d_lo"]), d_lo=at["d_lo"],
+        d_hi=at["d_lo"] + at["d_row"])
+    parts = [((torch.as_tensor(trans_q[c // Dm * q_rows:][:q_rows]),
+               torch.as_tensor(trans[c % Dm]),
+               torch.as_tensor(offs[c % Dm], dtype=torch.int64),
+               torch.as_tensor(lens[c % Dm], dtype=torch.int64)),
+              c // Dm * q_rows, c % Dm * F) for c in range(Qm * Dm)]
+    return m, i * Dm + j, k, parts
+
+
 @pytest.mark.parametrize("xdrop", [0, 5])
 def test_sharded_band_scorer_equals_jax(monkeypatch, xdrop):
-    """The port's make_sharded_band_scorer gives the JAX scorer's scores
-    (kernel='xla', its CPU route) on the same (q, db) inputs, padding
-    rows included, exact and with LAMBDA_SW_XDROP (latched at import in
-    both packages, set on both modules here)."""
+    """Pass 1 over a (q, db) grid, one part per cell (extend.score_parts,
+    the route of SearchContext._sharded_scores), gives the JAX mesh
+    scorer's scores (kernel='xla', its CPU route) on the same rows: per
+    (qlen, band) class the JAX scorer runs at that class's plan width,
+    as the JAX pipeline runs it, exact and with LAMBDA_SW_XDROP (latched
+    at import in both packages, set on both modules here).  The JAX
+    scorer's padding rows (qry_len 0, d_row -1) score 0; the port's
+    cells hold no padding rows."""
     from lambda_tpu import scoring as jscoring
 
     monkeypatch.setattr(jsw, "_XDROP", xdrop)
@@ -328,20 +356,72 @@ def test_sharded_band_scorer_equals_jax(monkeypatch, xdrop):
     gf, ge = sch.dp_gap_first, sch.dp_gap_extend
     names = ("qry_id", "qry_start", "qry_len", "subj_id", "d_lo", "d_row")
     jm = jax_mesh(Qm, Dm)
-    want = np.asarray(jmesh.make_sharded_band_scorer(
-        jm, N, D, gf, ge, kernel="xla")(
-        jput(jm, trans_q, "q", None), jput(jm, trans, "db", None),
-        jput(jm, offs, "db", None), jput(jm, lens, "db", None),
-        *(jput(jm, arrs[k], "q", "db", None) for k in names),
-        jput(jm, e8, None, None)))
-    m = grid(Qm, Dm)
-    got = tmesh.make_sharded_band_scorer(m, N, D, gf, ge)(
-        m.put_q(trans_q), m.put_db(trans), m.put_db(offs, torch.int64),
-        m.put_db(lens, torch.int64), *(m.put_cells(arrs[k]) for k in names),
-        m.put_all(e8))
-    got = np.stack([g.numpy() for g in got]).reshape(Qm, Dm, -1)
+    m, cell, slot, parts = _band_parts(Qm, Dm, trans_q, trans, offs, lens,
+                                       arrs)
+    got = tx.score_parts(m, parts, cell, e8, e8, gf, ge, False)
+    qlen, d_row, _ = tx._ext_geometry(m)
+    classes = tx.bucket_groups(qlen, d_row, np.zeros(len(m), bool))
+    assert len(classes) > 1
+    want = np.zeros(len(m), np.int64)
+    for (qbk, dbk, _), rows in classes.items():
+        jax_out = np.asarray(jmesh.make_sharded_band_scorer(
+            jm, jsw._plan(qbk + dbk, dbk)[0], dbk, gf, ge, kernel="xla")(
+            jput(jm, trans_q, "q", None), jput(jm, trans, "db", None),
+            jput(jm, offs, "db", None), jput(jm, lens, "db", None),
+            *(jput(jm, arrs[k], "q", "db", None) for k in names),
+            jput(jm, e8, None, None)))
+        assert (jax_out[arrs["d_row"] < 0] == 0).all()
+        want[rows] = jax_out.reshape(Qm * Dm, -1)[cell[rows], slot[rows]]
     np.testing.assert_array_equal(got, want)
-    assert (want[arrs["d_row"] < 0] == 0).all() and want.max() > 20
+    assert want.max() > 20
+
+
+def test_sharded_scores_skip_a_cells_absent_class(monkeypatch):
+    """A cell launches only its own rows of each class: with one class's
+    rows taken out of the last cell, that cell launches nothing for the
+    class, every other (cell, class) that holds rows launches once on
+    exactly those rows, the counters still count one dispatch per class,
+    and the rows left keep the scores of the full grid."""
+    from lambda_tpu_torch.stats import StatsHolder
+
+    rng = np.random.default_rng(5)
+    Qm, Dm, D = 2, 2, 23
+    inputs = _band_inputs(rng, Qm, Dm, jsw._plan(64 + D, D)[0], D)
+    m, cell, _, parts = _band_parts(Qm, Dm, *inputs)
+    e8 = tsw.extend_matrix8(np.eye(20, dtype=np.int32) * 6 - 2)
+    full = tx.score_parts(m, parts, cell, e8, e8, -12, -1, False)
+
+    def classes(mb):
+        return tx.bucket_groups(*tx._ext_geometry(mb)[:2],
+                                np.zeros(len(mb), bool))
+
+    key, rows = next((k, r) for k, r in classes(m).items()
+                     if 3 in cell[r] and len(set(cell[r])) > 1)
+    keep = np.setdiff1d(np.arange(len(m)), np.asarray(rows)[cell[rows] == 3])
+    m2, cell2 = m.take(keep), cell[keep]
+    held = {(int(c), tuple(r[cell2[r] == c]))
+            for r in map(np.asarray, classes(m2).values())
+            for c in set(cell2[r])}
+    assert key in classes(m2) and 3 not in cell2[classes(m2)[key]]
+    launched, scored = set(), [0]
+    gather, score = tx._gather_windows, tsw.sw_band_score_device
+
+    def gather_hook(resident, mb, idxs, pad, N, q_base, s_base):
+        launched.add((q_base // 4 * Dm + s_base // 5, tuple(idxs)))
+        return gather(resident, mb, idxs, pad, N, q_base, s_base)
+
+    def score_hook(*a):
+        scored[0] += 1
+        return score(*a)
+
+    monkeypatch.setattr(tx, "_gather_windows", gather_hook)
+    monkeypatch.setattr(tsw, "sw_band_score_device", score_hook)
+    st = StatsHolder()
+    got = tx.score_parts(m2, parts, cell2, e8, e8, -12, -1, False, stats=st)
+    assert launched == held and scored[0] == len(held)
+    assert (st.ext_dispatches, st.ext_dispatch_rows) \
+        == (len(classes(m2)), len(m2))
+    np.testing.assert_array_equal(got, full[keep])
 
 
 @pytest.mark.parametrize("max_cursors", [8, 1024])
